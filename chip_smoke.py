@@ -5,13 +5,18 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the memory-read kernel from otvm_tpu_torch/kernels/csrc (nvcc,
-     sm_90a), timed;
+  2. build the memory-read kernels from otvm_tpu_torch/kernels/csrc (nvcc,
+     sm_90a), timed; count the tensor-core (HGMMA) and TMA (UTMALDG)
+     instructions in the library: the bf16 kernel must have both;
   3. the kernel against its plain PyTorch version on the card, fp32 (TF32
      off) and bf16, at the stream's shapes (512p: HW=1024, T=6, 1..6 valid
      slots; 1088x1920: HW=8160, T=3), ragged tiles with a non-prefix mask,
-     and no valid slot; then its time beside the plain version's, SDPA's
-     (a yardstick only: the port never calls it) and the bound;
+     and no valid slot; then its time at 512p count 5 and 1088x1920 count
+     2 beside the plain version's, SDPA's (a yardstick only: the port
+     never calls it) and the bound; the combine kernel (which merges the
+     split bf16 read at 512p) against its plain version, timed.  Each
+     comparison is the norm-relative error (otvm_tpu_torch/tools/
+     kernel_check.py), and a lower-precision control must fail it;
   4. the full-width stage-4 stream through StreamingEvaluator.run_video:
      512x512, a bank of at most 5, memorize every 10th frame, random
      weights from a seed, fp32, once with the kernel and once with the
@@ -30,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,14 +48,7 @@ MAX_MEM = 5
 SKIP = 10
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM dense, CUDA-core fp32
 PEAK_BYTES = 3.35e12
-TOL = {
-    # both accumulate in fp32, in different orders; outputs are O(1)
-    "float32": dict(atol=1e-4, rtol=1e-4),
-    # outputs are bf16 (ulp 2^-7 at 1): the kernel rounds the unnormalized
-    # p to bf16, the plain version the normalized p, then both round the
-    # output: a couple of ulps apart at most
-    "bfloat16": dict(atol=2e-2, rtol=1e-2),
-}
+TIMED = [(1, 1024, 6, 5, "512p count 5"), (1, 8160, 3, 2, "1088x1920 count 2")]   # b, hw, t, count
 
 
 def card_line() -> str:
@@ -59,27 +58,49 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=20, flush=None):
-    """Median device time of one call, by CUDA events around each call;
-    `flush` (a tensor larger than L2) is rewritten before each call so the
-    call finds the cache cold, as it does between frames of the stream."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def sass_counts(ma):
+    """Phase 2: HGMMA / UTMALDG instructions in the built library."""
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(ma.library_path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+
+
+def read_cost(dt, b, hw, count, ck=128, cv=512, t=None):
+    """(bound ms, bound_by) of one read: operations on this run's valid
+    positions over the dtype's peak, bytes (q, the valid bank, out, mask)
+    over the memory rate."""
+    flops = 2.0 * b * hw * (count * hw) * (ck + cv)
+    nbytes = dt.itemsize * (b * hw * ck + b * count * hw * (ck + cv) + b * hw * cv) + b * t
+    name = str(dt).split(".")[-1]
+    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check(got, want, tol, what, ctl=None):
+    """got within `tol` of want (norm-relative); the control, computed the
+    plain way on inputs of a narrower type, must not be.  -> (rel, max
+    |err|)."""
+    from otvm_tpu_torch.tools.kernel_check import rel_err
+
+    if not bool(got.float().isfinite().all()):
+        raise AssertionError(f"non-finite output ({what})")
+    rel, err = rel_err(got, want), (got.float() - want.float()).abs().max().item()
+    line = f"  {what:40s} rel {rel:.3e} max|err| {err:.3e}"
+    if ctl is not None:
+        rel_ctl = rel_err(ctl, want)
+        line += f"  control rel {rel_ctl:.3e}"
+        assert rel_ctl > tol, f"the check at {tol} would pass the control ({what})"
+    print(line + f"  (tol {tol:g})")
+    assert rel <= tol, f"{what}: rel err {rel:.3e} > {tol:g}"
+    return rel, err
 
 
 def kernel_phase(torch, ma):
-    """Phase 3: kernel vs plain at the stream's shapes; timings at 512p."""
+    """Phase 3: kernel vs plain at the stream's shapes; timings at 512p
+    count 5 and 1088x1920 count 2; the combine kernel at 512p."""
+    from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, READ_TOL, control, device_ms,
+                                                   event_ms)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     prefix = lambda b, t, c: torch.arange(t, device="cuda")[None].expand(b, t) < c
     cases = [(1, 1024, 6, prefix(1, 6, c), f"512p count {c}") for c in (1, 3, 5, 6)]
@@ -97,60 +118,84 @@ def kernel_phase(torch, ma):
             got = ma.memory_read(q, k, v, mask)
             torch.cuda.synchronize()
             want = ma.memory_read_plain(q, k, v, mask)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.isfinite(got.float()).all().item()
-            print(f"  kernel vs plain {dname:8s} {label:24s} max|err| {err:.3e}")
-            if not ok:
-                raise AssertionError(f"non-finite kernel output ({dname}, {label})")
-            torch.testing.assert_close(got.float(), want.float(), **TOL[dname],
-                                       msg=f"kernel != plain ({dname}, {label})")
-            errs[dname, label] = err
+            ctl = ma.memory_read_plain(control(q), control(k), control(v), mask)
+            errs[dname, label] = check(got, want, READ_TOL[dt], f"kernel {dname} {label}", ctl)
 
-    # timings at the stream's steady state: 512p, 5 valid slots of 6
-    b, hw, t, count = 1, 1024, 6, 5
+    # timings at the stream's steady state (512p, 5 valid slots of 6) and
+    # at 1088x1920 (the VM108 protocol's large inputs: 2 valid slots of 3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     timing = {}
-    for dname in ("float32", "bfloat16"):
-        dt = getattr(torch, dname)
-        q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
-        k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
-        v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
-        mask = prefix(b, t, count)
-        pos_mask = mask.repeat_interleave(hw, dim=1)[:, None, None, :]   # [B,1,1,T*HW]
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, None], k.reshape(b, 1, t * hw, 128), v.reshape(b, 1, t * hw, 512),
-            attn_mask=pos_mask)
-        torch.testing.assert_close(sdpa()[:, 0].float(), ma.memory_read_plain(q, k, v, mask).float(),
-                                   **TOL[dname], msg="SDPA yardstick computes another function")
-        flops = 2.0 * b * hw * (count * hw) * (128 + 512)
-        nbytes = dt.itemsize * (b * hw * 128 + b * count * hw * (128 + 512) + b * hw * 512) + b * t
-        timing[dname] = dict(
-            ms=time_ms(torch, lambda: ma.memory_read(q, k, v, mask), flush=flush),
-            plain_ms=time_ms(torch, lambda: ma.memory_read_plain(q, k, v, mask), flush=flush),
-            library_ms=time_ms(torch, sdpa, flush=flush),
-            bound_ms=1e3 * max(flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES),
-            bound_by="operations" if flops / PEAK_FLOPS[dname] >= nbytes / PEAK_BYTES
-            else "bytes",
-            max_abs_err=errs[dname, f"512p count {count}"])
-        print(f"  time {dname:8s} 512p count {count}: " + ", ".join(
-            f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
-            for key, val in timing[dname].items()))
+    for b, hw, t, count, label in TIMED:
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
+            k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
+            v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
+            mask = prefix(b, t, count)
+            pos_mask = mask.repeat_interleave(hw, dim=1)[:, None, None, :]   # [B,1,1,T*HW]
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, None], k.reshape(b, 1, t * hw, 128), v.reshape(b, 1, t * hw, 512),
+                attn_mask=pos_mask)
+            check(sdpa()[:, 0], ma.memory_read_plain(q, k, v, mask), READ_TOL[dt],
+                  f"SDPA yardstick {dname} {label}")
+            bound_ms, bound_by = read_cost(dt, b, hw, count, t=t)
+            row = timing[dname, label] = dict(
+                ms=device_ms(lambda: ma.memory_read(q, k, v, mask), flush=flush),
+                event_ms=event_ms(lambda: ma.memory_read(q, k, v, mask), flush=flush),
+                plain_ms=device_ms(lambda: ma.memory_read_plain(q, k, v, mask), flush=flush),
+                library_ms=device_ms(sdpa, flush=flush),
+                bound_ms=bound_ms, bound_by=bound_by, rel_err=errs[dname, label][0],
+                max_abs_err=errs[dname, label][1])
+            print(f"  time {dname:8s} {label}: " + ", ".join(
+                f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
+                for key, val in row.items()))
+            if dname == "bfloat16":
+                faster = row["ms"] < min(row["plain_ms"], row["library_ms"])
+                print(f"  bf16 kernel faster than plain and SDPA at {label}: {faster}")
+
+    # the combine kernel, on the split partials of the stream's 512p read
+    b, hw, t, count, label = TIMED[0]
+    q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(torch.bfloat16)
+    _, _, splits = ma.launch_geometry(b, hw, t, 512, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count)
+    acc, ml = ma.memory_read_partials_plain(q, k, v, prefix(b, t, count), splits)
+    got = ma.memory_combine_cuda(acc, ml)
+    want = ma.combine_plain(acc, ml, torch.bfloat16)
+    # control: the partials rounded to bf16 before the merge
+    rel, err = check(got, want, COMBINE_TOL, f"combine bf16 {label}",
+                     ma.combine_plain(acc.bfloat16().float(), ml, torch.bfloat16))
+    nbytes = acc.numel() * 4 + ml.numel() * 4 + got.numel() * 2
+    timing["combine", label] = row = dict(
+        ms=device_ms(lambda: ma.memory_combine_cuda(acc, ml), flush=flush),
+        event_ms=event_ms(lambda: ma.memory_combine_cuda(acc, ml), flush=flush),
+        plain_ms=device_ms(lambda: ma.combine_plain(acc, ml, torch.bfloat16), flush=flush),
+        library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+        rel_err=rel, max_abs_err=err, splits=splits)
+    print(f"  time combine  {label} ({splits} splits): " + ", ".join(
+        f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
+        for key, val in row.items()))
     return timing
 
 
 @contextlib.contextmanager
 def lockstep_check(torch, ma, dname):
     """While active, every kernel launch on the path is also computed by
-    the plain version on the same inputs and held to TOL; yields the list
-    of max |err| per read.  The plain calls launch no kernel."""
+    the plain version on the same inputs and held to READ_TOL; yields the
+    list of norm-relative errors per read.  The plain calls launch no
+    kernel."""
+    from otvm_tpu_torch.tools.kernel_check import READ_TOL, rel_err
+
     launch, errs = ma.memory_read_cuda, []
+    tol = READ_TOL[getattr(torch, dname)]
 
     def checked(q, k, v, mask):
         out = launch(q, k, v, mask)
         want = ma.memory_read_plain(q, k, v, mask)
-        torch.testing.assert_close(out.float(), want.float(), **TOL[dname],
-                                   msg=f"kernel != plain on the stream's read {len(errs)}")
-        errs.append((out.float() - want.float()).abs().max().item())
+        errs.append(rel_err(out, want))
+        assert errs[-1] <= tol, f"kernel != plain on the stream's read {len(errs) - 1}: " \
+            f"rel err {errs[-1]:.3e} > {tol:g}"
         return out
 
     ma.memory_read_cuda = checked
@@ -215,8 +260,12 @@ def main() -> int:
     ma.build()
     print(f"  built in {time.perf_counter() - t0:.2f} s")
     for line in ma.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "C75" in line:
             print("  ptxas:", line.strip())
+    sass = sass_counts(ma)
+    print(f"  SASS of {ma.library_path.name}: " + ", ".join(f"{op} {n}" for op, n in sass.items()))
+    assert sass["HGMMA"] > 0, "no tensor-core (HGMMA) instruction in the built library"
+    assert sass["UTMALDG"] > 0, "no TMA load (UTMALDG) in the built library"
 
     print("phase 3: kernel vs plain")
     timing = kernel_phase(torch, ma)
@@ -235,7 +284,7 @@ def main() -> int:
     pa, pt, _ = ev_plain.run_video(frames, tri)
     print(f"  kernel launches in the kernel stream: {fp32_launches} "
           f"(segment calls: {N_FRAMES - 1}); every read vs plain on its own inputs: "
-          f"max|err| {max(read_errs):.3e}; fp32 {kfps:.2f} frames/s (lockstep-checked)")
+          f"rel err <= {max(read_errs):.3e}; fp32 {kfps:.2f} frames/s (lockstep-checked)")
     check_outputs(ka, kt, N_FRAMES, "fp32 kernel stream")
     check_outputs(pa, pt, N_FRAMES, "fp32 plain stream")
     assert fp32_launches == len(read_errs) == N_FRAMES - 1, \
@@ -265,14 +314,17 @@ def main() -> int:
         memory_max_num=MAX_MEM, memory_skip_frame=SKIP, dtype="bf16"))
     with lockstep_check(torch, ma, "bfloat16") as read_errs16:   # warm-up, both bank branches
         ev16.run_video(frames[:12], tri)
-    print(f"  warm-up: every bf16 read vs plain on its own inputs: max|err| "
+    print(f"  warm-up: every bf16 read vs plain on its own inputs: rel err <= "
           f"{max(read_errs16):.3e}")
     torch.cuda.synchronize()
-    ma.launches = 0
+    ma.launches = ma.combine_launches = 0
     ba, bt, fps = ev16.run_video(frames, tri)
-    bf16_launches = ma.launches
+    bf16_launches, combine_launches = ma.launches, ma.combine_launches
     check_outputs(ba, bt, N_FRAMES, "bf16 stream")
+    print(f"  launches in the bf16 stream: memory_read {bf16_launches}, "
+          f"memory_combine {combine_launches}")
     assert bf16_launches == N_FRAMES - 1, "the bf16 stream did not run the kernel per segment"
+    assert combine_launches == N_FRAMES - 1, "the bf16 stream did not merge its split reads"
     drift = [float(np.abs(b - a).mean()) for a, b in zip(ka, ba)]
     agree0 = (bt[0].argmax(-1) == kt[0].argmax(-1)).mean()
     print(f"  bf16 vs fp32 stream, mean|dalpha| per frame: frame 0 {drift[0]:.4f} "
@@ -288,14 +340,23 @@ def main() -> int:
     print(f"fps_512p_joint_s4_bf16: {fps:.3f} frames/s ({N_FRAMES} frames, run_video, "
           f"wall clock) on {card}")
 
-    t = timing["bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "memory_read", "route": "cuda",
-        "source": "otvm_tpu_torch/kernels/csrc/memory_attn.cu",
-        "replaces": "otvm_tpu/kernels/memory_attn.py:134",
-        "launches": bf16_launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]}]}))
+    # top-level numbers: the stream's shape (512p count 5) in bf16; every
+    # timed shape and dtype under "shapes"
+    keys = ("max_abs_err", "rel_err", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    main_label = TIMED[0][4]
+    read = timing["bfloat16", main_label]
+    comb = timing["combine", main_label]
+    src = "otvm_tpu_torch/kernels/csrc/memory_attn.cu"
+    print(json.dumps({"kernels": [
+        {"name": "memory_read", "route": "cuda", "source": src,
+         "replaces": "otvm_tpu/kernels/memory_attn.py:134", "launches": bf16_launches,
+         **{key: read[key] for key in keys},
+         "shapes": {f"{d} {label}": row for (d, label), row in timing.items() if d != "combine"}},
+        {"name": "memory_combine", "route": "cuda", "source": src,
+         "replaces": "otvm_tpu/kernels/memory_attn.py:124", "launches": combine_launches,
+         **{key: comb[key] for key in keys},
+         "shapes": {f"bfloat16 {main_label}": comb}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-// Space-time memory read for Hopper (sm_90a), CUDA C++ with a plain C entry.
+// Space-time memory read for Hopper (sm_90a), CUDA C++ with plain C entries.
 //
 // Replaces otvm_tpu/kernels/memory_attn.py::memory_read_pallas (the Pallas
 // TPU kernel, body _flash_kernel).  Computes, per batch element b,
@@ -8,27 +8,48 @@
 // score matrix never reaches device memory.  Masked slots score -1e30 and p
 // is not zeroed, as in memory_read_xla: with at least one valid slot this is
 // the Pallas result; with none it is the uniform average (Pallas gives NaN).
+// Positions past T*HW score -inf.  As in the Pallas kernel, the
+// unnormalised p is rounded to the value dtype before the PV product, and
+// the output takes q's dtype.  KV tiles that lie wholly in masked slots are
+// skipped when at least one slot is valid (their p is exactly 0 then).
 //
-// What bounds it on an H100 at 512p, steady state (HW = 1024, 5 valid slots
-// of T = 6, Ck = 128, Cv = 512): 2 * 1024 * 5120 * (128 + 512) = 6.7 GFLOP,
-// 6.8 us on the bf16 tensor cores (989 TFLOP/s); the bytes (q, the valid
-// bank, out: ~7.8 MB in bf16) take 2.3 us at 3.35 TB/s.  It is
-// compute-bound.
+// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): at 512p
+// steady state (HW = 1024, 5 valid slots of T = 6, Ck = 128, Cv = 512) the
+// read is 2 * 1024 * 5120 * (128 + 512) = 6.7 GFLOP, 6.8 us on the tensor
+// cores, against ~7.8 MB of bytes (2.3 us); at 1088x1920 (HW = 8160, 2
+// valid slots) 170 GFLOP, 0.17 ms.  It is bound by tensor-core operations,
+// so the bf16 kernel has to run both products on them:
 //
-// This first design is simple and exact rather than fast:
-//   * grid (HW / 32 query rows, Cv / 128 value columns, B); 256 threads;
-//   * the KV axis is a loop inside the block, in tiles of 64 positions staged
-//     in shared memory as fp32; S = Q K^T is recomputed for every Cv slice;
-//   * all products are fp32 FMAs on the CUDA cores, also for bf16 inputs
-//     (converted on load) - no mma.sync, wgmma or TMA, no cp.async
-//     pipelining.  It gives up the tensor cores (15x the fp32 rate) and
-//     overlap of loads with math; that redesign is later work;
-//   * KV tiles that lie wholly in masked slots are skipped when at least one
-//     slot is valid (their p is exactly 0 then), so a steady-state read
-//     costs the valid slots only, for any mask, prefix or not.
-// As in the Pallas kernel, p is rounded to the value dtype before the PV
-// product, and the output takes q's dtype.
+//   * memory_read_tc (bf16): one block per 128 query rows x CVT value
+//     columns (CVT = 256, or 128 when Cv is not a multiple of 256) x one
+//     share of the live K/V tiles.  Warpgroups 0-1 are consumers, 64 query
+//     rows each; warpgroup 2 is the producer and hands its registers to
+//     the consumers (setmaxnreg: 232 each, for a 64 x 256 fp32 accumulator
+//     plus S and P).  One producer thread brings Q once and K/V tiles of 64
+//     positions through a STAGES-deep ring of shared-memory stages by TMA
+//     (128-byte swizzle; 64-byte for Ck = 32), with full/empty mbarriers;
+//     TMA zero-fills rows past HW or T*HW.  Each consumer runs S = Q K^T as
+//     wgmma m64n64k16 (A and B from shared memory, K-major), masks per
+//     position, keeps the online softmax in registers, rounds p to bf16 in
+//     the accumulator layout (which is the A-operand layout of the next
+//     product), and runs O += P V as wgmma m64n128k16 with A from registers
+//     and V MN-major (transposed B).  S is computed again for each CVT
+//     slice: +20% operations at Cv = 512.
+//   * Overlap: a consumer issues S_j together with P_(j-1) V_(j-1) and
+//     computes the softmax of S_j while the tensor cores run; the two
+//     consumers take turns on the tensor cores (named barriers), so one's
+//     softmax overlaps the other's products.
+//   * The grid alone fills the card at 1088x1920 (128 blocks); at 512p it
+//     makes 16 blocks, so the wrapper splits the live K/V tiles across
+//     `splits` blocks, each writing (m, l, unnormalised acc) in fp32, and
+//     memory_combine merges them.  With splits = 1 the block writes out.
+//   * fp32 (the parity mode, not served) stays on the CUDA cores
+//     (memory_read_simple): every product an fp32 FMA from shared memory,
+//     S recomputed for each 128-column slice of Cv.  Its own redesign is
+//     later work.
+// Times on the card beside these bounds: PERF.md (chip_smoke.py phase 3).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,20 +57,16 @@
 
 namespace {
 
-constexpr int BQ = 32;       // query rows per block (16 row pairs)
-constexpr int BK = 64;       // memory positions per KV tile
-constexpr int CVS = 128;     // value columns per block
-constexpr int THREADS = 256; // 16 x 16: ty owns 2 rows, tx owns columns tx + 16 j
 constexpr int MAX_T = 256;   // bank slots
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// fp32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
+constexpr int S_BQ = 32;        // query rows per block (16 row pairs)
+constexpr int S_BK = 64;        // memory positions per KV tile
+constexpr int S_CVS = 128;      // value columns per block
+constexpr int S_THREADS = 256;  // 16 x 16: ty owns 2 rows, tx owns columns tx + 16 j
 
 // max / sum over the 16 lanes that share a row pair (one half-warp)
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -64,44 +81,44 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 template <int CK>
-constexpr size_t smem_bytes() {
-    return sizeof(float) * (BQ * (CK + 1) + BK * (CK + 1) + BK * CVS + BQ * BK);
+constexpr size_t simple_smem_bytes() {
+    return sizeof(float) * (S_BQ * (CK + 1) + S_BK * (CK + 1) + S_BK * S_CVS + S_BQ * S_BK);
 }
 
-template <typename T, int CK>
-__global__ void __launch_bounds__(THREADS)
-memory_read_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const uint8_t* __restrict__ slot_mask,
-                   T* __restrict__ out, int hw, int t, int cv, float scale) {
+template <int CK>
+__global__ void __launch_bounds__(S_THREADS)
+memory_read_simple(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const uint8_t* __restrict__ slot_mask,
+                   float* __restrict__ out, int hw, int t, int cv, float scale) {
     extern __shared__ float smem[];
     float* Qs = smem;                    // [BQ][CK + 1]  (+1: no bank conflicts)
-    float* Ks = Qs + BQ * (CK + 1);      // [BK][CK + 1]
-    float* Vs = Ks + BK * (CK + 1);      // [BK][CVS]
-    float* Ps = Vs + BK * CVS;           // [BQ][BK]
+    float* Ks = Qs + S_BQ * (CK + 1);    // [BK][CK + 1]
+    float* Vs = Ks + S_BK * (CK + 1);    // [BK][CVS]
+    float* Ps = Vs + S_BK * S_CVS;       // [BQ][BK]
     __shared__ uint8_t mask_s[MAX_T];
     __shared__ int any_valid_s;
 
     const int tid = threadIdx.x;
     const int tx = tid & 15, ty = tid >> 4;
-    const int q0 = blockIdx.x * BQ;
-    const int cv0 = blockIdx.y * CVS;
+    const int q0 = blockIdx.x * S_BQ;
+    const int cv0 = blockIdx.y * S_CVS;
     const int b = blockIdx.z;
     const long kv_len = (long)t * hw;
 
-    const T* qb = q + (long)b * hw * CK;
-    const T* kb = k + (long)b * kv_len * CK;
-    const T* vb = v + (long)b * kv_len * cv;
+    const float* qb = q + (long)b * hw * CK;
+    const float* kb = k + (long)b * kv_len * CK;
+    const float* vb = v + (long)b * kv_len * cv;
 
     if (tid == 0) any_valid_s = 0;
     __syncthreads();
-    for (int i = tid; i < t; i += THREADS) {
+    for (int i = tid; i < t; i += S_THREADS) {
         const uint8_t m = slot_mask[(long)b * t + i];
         mask_s[i] = m;
         if (m) any_valid_s = 1;
     }
-    for (int i = tid; i < BQ * CK; i += THREADS) {
+    for (int i = tid; i < S_BQ * CK; i += S_THREADS) {
         const int r = i / CK, c = i % CK;
-        Qs[r * (CK + 1) + c] = (q0 + r < hw) ? to_f(qb[(long)(q0 + r) * CK + c]) : 0.f;
+        Qs[r * (CK + 1) + c] = (q0 + r < hw) ? qb[(long)(q0 + r) * CK + c] : 0.f;
     }
     __syncthreads();
     const bool any_valid = any_valid_s != 0;
@@ -115,20 +132,20 @@ memory_read_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    for (long k0 = 0; k0 < kv_len; k0 += BK) {
-        const int n_k = (int)min((long)BK, kv_len - k0);
+    for (long k0 = 0; k0 < kv_len; k0 += S_BK) {
+        const int n_k = (int)min((long)S_BK, kv_len - k0);
         if (any_valid) {  // block-uniform: every thread takes the same branch
             bool live = false;
             for (long s = k0 / hw; s <= (k0 + n_k - 1) / hw; ++s) live |= mask_s[s] != 0;
             if (!live) continue;
         }
-        for (int i = tid; i < BK * CK; i += THREADS) {
+        for (int i = tid; i < S_BK * CK; i += S_THREADS) {
             const int r = i / CK, c = i % CK;
-            Ks[r * (CK + 1) + c] = (r < n_k) ? to_f(kb[(k0 + r) * CK + c]) : 0.f;
+            Ks[r * (CK + 1) + c] = (r < n_k) ? kb[(k0 + r) * CK + c] : 0.f;
         }
-        for (int i = tid; i < BK * CVS; i += THREADS) {
-            const int r = i / CVS, c = i % CVS;
-            Vs[r * CVS + c] = (r < n_k) ? to_f(vb[(k0 + r) * cv + cv0 + c]) : 0.f;
+        for (int i = tid; i < S_BK * S_CVS; i += S_THREADS) {
+            const int r = i / S_CVS, c = i % S_CVS;
+            Vs[r * S_CVS + c] = (r < n_k) ? vb[(k0 + r) * cv + cv0 + c] : 0.f;
         }
         __syncthreads();
 
@@ -169,7 +186,7 @@ memory_read_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int j = 0; j < 4; ++j) {
                 const float p = expf(s[i][j] - m_new);
                 psum += p;
-                Ps[(r0 + i) * BK + tx + 16 * j] = to_f(from_f<T>(p));
+                Ps[(r0 + i) * S_BK + tx + 16 * j] = p;
             }
             l_run[i] = l_run[i] * alpha + half_warp_sum(psum);
             m_run[i] = m_new;
@@ -180,12 +197,12 @@ memory_read_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
         // acc += P V over this tile (out-of-range rows have p = 0 and V = 0)
 #pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-            const float p0 = Ps[r0 * BK + kk];
-            const float p1 = Ps[(r0 + 1) * BK + kk];
+        for (int kk = 0; kk < S_BK; ++kk) {
+            const float p0 = Ps[r0 * S_BK + kk];
+            const float p1 = Ps[(r0 + 1) * S_BK + kk];
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-                const float vv = Vs[kk * CVS + tx + 16 * j];
+                const float vv = Vs[kk * S_CVS + tx + 16 * j];
                 acc[0][j] = fmaf(p0, vv, acc[0][j]);
                 acc[1][j] = fmaf(p1, vv, acc[1][j]);
             }
@@ -197,53 +214,647 @@ memory_read_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
         const int r = q0 + r0 + i;
         if (r >= hw) continue;
-        T* ob = out + ((long)b * hw + r) * cv + cv0;
+        float* ob = out + ((long)b * hw + r) * cv + cv0;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) ob[tx + 16 * j] = from_f<T>(acc[i][j] / l_run[i]);
+        for (int j = 0; j < 8; ++j) ob[tx + 16 * j] = acc[i][j] / l_run[i];
     }
 }
 
-template <typename T, int CK>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   int batch, int hw, int t, int cv, cudaStream_t stream) {
-    auto kernel = memory_read_kernel<T, CK>;
-    const size_t smem = smem_bytes<CK>();
+template <int CK>
+cudaError_t launch_simple(const void* q, const void* k, const void* v, const void* mask,
+                          void* out, int batch, int hw, int t, int cv, cudaStream_t stream) {
+    auto kernel = memory_read_simple<CK>;
+    const size_t smem = simple_smem_bytes<CK>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((hw + BQ - 1) / BQ, cv / CVS, batch);
-    kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const uint8_t*>(mask), static_cast<T*>(out), hw, t, cv,
+    const dim3 grid((hw + S_BQ - 1) / S_BQ, cv / S_CVS, batch);
+    kernel<<<grid, S_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(out), hw, t, cv,
         1.0f / sqrtf((float)CK));
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_ck(const void* q, const void* k, const void* v, const void* mask,
-                        void* out, int batch, int hw, int t, int ck, int cv,
-                        cudaStream_t stream) {
-    switch (ck) {
-        case 32: return launch<T, 32>(q, k, v, mask, out, batch, hw, t, cv, stream);
-        case 128: return launch<T, 128>(q, k, v, mask, out, batch, hw, t, cv, stream);
-        default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (TMA ring, wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 128;                   // query rows per block: 64 per consumer warpgroup
+constexpr int BK = 64;                    // memory positions per K/V tile
+constexpr int STAGES = 3;                 // K/V ring depth
+constexpr int CONSUMERS = 256;            // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+// setmaxnreg: 128 x 40 + 256 x 232 = 64512 of the SM's 65536 registers
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int CK, int CVT>
+struct Layout {
+    static constexpr int CKB = CK < 64 ? CK : 64;   // key columns per TMA box (<= 128 bytes)
+    static constexpr int SWZ = CKB * 2;             // swizzle span in bytes: 128, or 64 at Ck = 32
+    static constexpr int KBOX = BK * CKB * 2;       // bytes of one 64-row key/query box
+    static constexpr int Q_HALF = 64 * CK * 2;      // one consumer's 64 query rows
+    static constexpr int Q_BYTES = 2 * Q_HALF;
+    static constexpr int K_BYTES = BK * CK * 2;
+    static constexpr int V_BYTES = BK * CVT * 2;    // CVT / 64 boxes of 64 x 64
+    static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+    static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;   // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Returns once the barrier's phase differs from `parity`.  A wait of more
+// than 2^34 cycles (~9 s) is a broken pipeline: trap, so the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    long long start = 0;
+    for (;;) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (done) return;
+        if (start == 0) start = clock64();
+        else if (clock64() - start > (1ll << 34)) __trap();
     }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// wgmma shared-memory descriptors (start address, LBO, SBO in 16-byte units;
+// layout type 1 = 128-byte swizzle, 2 = 64-byte swizzle).
+// K-major, rows of SWZ bytes, 8-row groups SWZ * 8 bytes apart; LBO unused.
+template <int SWZ>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+    constexpr uint64_t layout = SWZ == 128 ? 1 : 2;
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+           ((uint64_t)((SWZ * 8) >> 4) << 32) | (layout << 62);
+}
+// MN-major (V: value columns contiguous), 128-byte swizzle: 64-column atoms
+// 8192 bytes apart (LBO, one 64 x 64 box), 8-row groups 1024 bytes apart (SBO).
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching a register that an in-flight wgmma reads
+// or writes: every use after the wait depends on this.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+#define F8(d, i)                                                                          \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
+        "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]; A from registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef F8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The K/V tiles a block reads, as ranges [x, y) of tile indices (tile i
+// covers positions [64 i, 64 i + 64)): with a valid slot, the tiles that
+// touch one; with none, all of them.  Built once per block by one thread.
+struct TileRanges {
+    int2 r[MAX_T + 1];   // + 1: TileCursor::next may read one past the last
+    int n;               // ranges
+    int live;            // tiles in all ranges
+};
+
+__device__ void build_ranges(TileRanges& tr, const uint8_t* mask_s, int hw, int t,
+                             bool any_valid) {
+    const int kv_len = t * hw;
+    int n = 0;
+    if (!any_valid) {
+        tr.r[n++] = make_int2(0, (kv_len + BK - 1) / BK);
+    } else {
+        for (int s = 0; s < t; ++s) {
+            if (!mask_s[s]) continue;
+            const int x = s * hw / BK, y = ((s + 1) * hw - 1) / BK + 1;
+            if (n > 0 && x <= tr.r[n - 1].y) tr.r[n - 1].y = max(tr.r[n - 1].y, y);
+            else tr.r[n++] = make_int2(x, y);
+        }
+    }
+    int live = 0;
+    for (int i = 0; i < n; ++i) live += tr.r[i].y - tr.r[i].x;
+    tr.n = n;
+    tr.live = live;
+}
+
+// Walks the live tiles in order, from a given rank.
+struct TileCursor {
+    const int2* r;
+    int i, tile;
+    __device__ __forceinline__ TileCursor(const TileRanges& tr, int rank) : r(tr.r), i(0) {
+        while (rank >= r[i].y - r[i].x) rank -= r[i].y - r[i].x, ++i;
+        tile = r[i].x + rank;
+    }
+    __device__ __forceinline__ void next() {
+        if (++tile == r[i].y) tile = r[++i].x;
+    }
+};
+
+__device__ __forceinline__ void named_bar_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+
+// Grid: (HW / 128 query tiles, Cv / CVT value tiles, B * splits).  Block
+// split s of batch row b reads live tiles [s L / splits, (s + 1) L / splits)
+// of the L live tiles.  splits == 1: writes out (bf16).  splits > 1: writes
+// acc_part [splits, B, HW, Cv] (unnormalised, fp32) and ml_part
+// [splits, B, HW] (running max in log2 units, sum of p), for memory_combine.
+//
+// Each consumer warpgroup pipelines its tiles: in the turn of tile j it
+// issues S_j = Q K_j^T and O += P_(j-1) V_(j-1) together, then computes the
+// softmax of S_j while the tensor cores run.  The two warpgroups take turns
+// on the tensor cores (named barriers 1 and 2), so one's softmax overlaps
+// the other's products.
+template <int CK, int CVT>
+__global__ void __launch_bounds__(THREADS, 1)
+memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ slot_mask,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ acc_part,
+               float2* __restrict__ ml_part, int hw, int t, int cv, int splits, float scale_log2) {
+    using L = Layout<CK, CVT>;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ uint64_t full_bar[STAGES];
+    __shared__ uint64_t empty_bar[STAGES];
+    __shared__ uint64_t q_bar;
+    __shared__ uint8_t mask_s[MAX_T + 1];
+    __shared__ int any_valid_s;
+    __shared__ TileRanges ranges;
+
+    // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+    const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t stage0 = q_s + L::Q_BYTES;
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * BQ;
+    const int cv0 = blockIdx.y * CVT;
+    const int b = blockIdx.z / splits;
+    const int split = blockIdx.z % splits;
+    const int batch = gridDim.z / splits;
+    const int kv_len = t * hw;
+
+    if (tid == 0) {
+        any_valid_s = 0;
+        for (int i = 0; i < STAGES; ++i) {
+            mbar_init(smem_u32(&full_bar[i]), 1);
+            mbar_init(smem_u32(&empty_bar[i]), CONSUMERS);
+        }
+        mbar_init(smem_u32(&q_bar), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    for (int i = tid; i < t; i += THREADS) {
+        const uint8_t m = slot_mask[(long)b * t + i];
+        mask_s[i] = m;
+        if (m) any_valid_s = 1;
+    }
+    __syncthreads();
+    if (tid == 0) build_ranges(ranges, mask_s, hw, t, any_valid_s != 0);
+    __syncthreads();
+    // warp-uniform by construction; the shuffle lets the compiler see it
+    // (a wgmma under a branch it cannot prove uniform is serialized)
+    const int live = __shfl_sync(0xffffffffu, ranges.live, 0);
+    const int lo = (int)((long)split * live / splits);
+    const int n_mine = (int)((long)(split + 1) * live / splits) - lo;
+    const int warpgroup = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+    if (warpgroup == CONSUMERS / 128) {
+        // ---- producer warpgroup: gives registers away; one thread issues every TMA load ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+        if (tid == CONSUMERS && n_mine > 0) {
+            const uint32_t qb = smem_u32(&q_bar);
+            mbar_expect_tx(qb, L::Q_BYTES);
+            for (int h = 0; h < 2; ++h)
+                for (int cb = 0; cb < CK / L::CKB; ++cb)
+                    tma_load_3d(q_s + h * L::Q_HALF + cb * L::KBOX, &q_map, qb, cb * L::CKB,
+                                q0 + 64 * h, b);
+            TileCursor cur(ranges, lo);
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int j = 0; j < n_mine; ++j, cur.next()) {
+                mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1);
+                const uint32_t fb = smem_u32(&full_bar[stage]);
+                mbar_expect_tx(fb, L::STAGE_BYTES);
+                const uint32_t ks = stage0 + stage * L::STAGE_BYTES;
+                const uint32_t vs = ks + L::K_BYTES;
+                for (int cb = 0; cb < CK / L::CKB; ++cb)
+                    tma_load_3d(ks + cb * L::KBOX, &k_map, fb, cb * L::CKB, cur.tile * BK, b);
+                for (int c = 0; c < CVT / 64; ++c)
+                    tma_load_3d(vs + c * 8192, &v_map, fb, cv0 + 64 * c, cur.tile * BK, b);
+                if (++stage == STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+    } else {
+        // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+        const int wg = warpgroup;
+        const int warp = (tid % 128) / 32, lane = tid % 32;
+        const int rq = warp * 16 + lane / 4;   // this thread's rows (of the 64): rq, rq + 8
+        const int cq = (lane % 4) * 2;         // its first column in each 8-column chunk
+        const uint32_t q_wg = q_s + wg * L::Q_HALF;
+
+        // accumulator layout of wgmma m64nN: o[4 n + 2 i + j] is row rq + 8 i,
+        // column 8 n + cq + j; here split in 128-column halves o[64 h + ...]
+        float o[CVT / 2];
+#pragma unroll
+        for (int i = 0; i < CVT / 2; ++i) o[i] = 0.f;
+        float m_run[2] = {-INFINITY, -INFINITY};
+        float l_run[2] = {0.f, 0.f};   // this thread's share of the row sums
+        float s[32];                   // S_j, then its p (fp32)
+        uint32_t a[16];                // P_(j-1) in bf16: chunk kk of 16 positions is a[4 kk ..]
+
+        // turns on the tensor cores: warpgroup 0 first, then 1, then 0, ...
+        // (each sync needs the other's arrive, or warpgroup 0's own first one)
+        const int my_turn = 1 + wg, their_turn = 2 - wg;
+        if (wg == 0 && n_mine > 0) named_bar_arrive(my_turn);
+
+        auto issue_s = [&](uint32_t ks) {
+#pragma unroll
+            for (int kk = 0; kk < CK / 16; ++kk) {
+                // 16 key columns = 32 bytes; boxes of CKB columns
+                const uint32_t off = (kk * 16 / L::CKB) * L::KBOX + (kk * 16 % L::CKB) * 2;
+                wgmma_m64n64k16_ss(s, desc_k_major<L::SWZ>(q_wg + off),
+                                   desc_k_major<L::SWZ>(ks + off), 1);
+            }
+            wgmma_commit();
+        };
+        auto issue_pv = [&](uint32_t vs) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int h = 0; h < CVT / 128; ++h)
+                    wgmma_m64n128k16_rs(o + 64 * h, a + 4 * kk,
+                                        desc_mn_major(vs + h * 2 * 8192 + kk * 2048));
+            wgmma_commit();
+        };
+        // mask S_j, update m and l, p = 2^(S - m) into s; returns alpha
+        auto softmax = [&](int tile, float* alpha) {
+            const int p0 = tile * BK;
+            const int slot_a = p0 / hw;
+            const int bnd = (slot_a + 1) * hw - p0;   // first column of the next slot
+            const bool two_slots = (min(p0 + BK, kv_len) - 1) / hw <= slot_a + 1;
+            float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const int col = 8 * n + cq + j;
+                    const bool in_range = p0 + col < kv_len;
+                    const int slot =
+                        col < bnd ? slot_a : (two_slots ? slot_a + 1 : (p0 + col) / hw);
+                    const bool valid = in_range && mask_s[slot] != 0;
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        float& x = s[4 * n + 2 * i + j];
+                        x = !in_range ? -INFINITY : (valid ? x * scale_log2 : -1e30f);
+                        mx[i] = fmaxf(mx[i], x);
+                    }
+                }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                alpha[i] = exp2f(m_run[i] - mx[i]);
+                m_run[i] = mx[i];
+                l_run[i] *= alpha[i];
+            }
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        float& x = s[4 * n + 2 * i + j];
+                        x = exp2f(x - m_run[i]);
+                        l_run[i] += x;
+                    }
+        };
+        // P_j to bf16 (the accumulator layout is the A-operand layout),
+        // O rescaled to the new max
+        auto to_a_and_rescale = [&](const float* alpha) {
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    a[4 * (n / 2) + 2 * (n % 2) + i] =
+                        pack_bf16(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]);
+#pragma unroll
+            for (int n = 0; n < CVT / 8; ++n) {
+                o[4 * n + 0] *= alpha[0];
+                o[4 * n + 1] *= alpha[0];
+                o[4 * n + 2] *= alpha[1];
+                o[4 * n + 3] *= alpha[1];
+            }
+        };
+
+        auto wait_pv_and_release = [&](int st) {
+            wgmma_wait<0>();
+#pragma unroll
+            for (int i = 0; i < CVT / 2; ++i) reg_fence(o[i]);
+#pragma unroll
+            for (int i = 0; i < 16; ++i) reg_fence(a[i]);
+            mbar_arrive(smem_u32(&empty_bar[st]));
+        };
+
+        // Turn 0 issues S_0; turn j in [1, n_mine) issues S_j and
+        // P_(j-1) V_(j-1); turn n_mine issues the last P V.  No wgmma sits
+        // under a branch: n_mine is warp-uniform, and the loop body is
+        // straight.
+        if (n_mine > 0) {
+            mbar_wait(smem_u32(&q_bar), 0);
+            TileCursor cur(ranges, lo);
+            float alpha[2];
+            mbar_wait(smem_u32(&full_bar[0]), 0);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[i] = 0.f;   // before the fence: wgmma reads it
+            named_bar_sync(my_turn);
+            wgmma_fence();
+            issue_s(stage0);
+            named_bar_arrive(their_turn);
+            wgmma_wait<0>();
+#pragma unroll
+            for (int i = 0; i < 32; ++i) reg_fence(s[i]);
+            softmax(cur.tile, alpha);
+            to_a_and_rescale(alpha);
+            cur.next();
+            int prev_stage = 0, stage = 1;
+            uint32_t phase = 0;
+            if (stage == STAGES) stage = 0, phase = 1;
+            for (int j = 1; j < n_mine; ++j) {
+                mbar_wait(smem_u32(&full_bar[stage]), phase);
+#pragma unroll
+                for (int i = 0; i < 32; ++i) s[i] = 0.f;
+                named_bar_sync(my_turn);
+                wgmma_fence();
+                issue_s(stage0 + stage * L::STAGE_BYTES);
+                issue_pv(stage0 + prev_stage * L::STAGE_BYTES + L::K_BYTES);
+                named_bar_arrive(their_turn);
+                wgmma_wait<1>();   // S_j is done; P_(j-1) V_(j-1) may still run
+#pragma unroll
+                for (int i = 0; i < 32; ++i) reg_fence(s[i]);
+                softmax(cur.tile, alpha);
+                wait_pv_and_release(prev_stage);
+                to_a_and_rescale(alpha);
+                cur.next();
+                prev_stage = stage;
+                if (++stage == STAGES) stage = 0, phase ^= 1;
+            }
+            named_bar_sync(my_turn);
+            wgmma_fence();
+            issue_pv(stage0 + prev_stage * L::STAGE_BYTES + L::K_BYTES);
+            if (wg == 0) named_bar_arrive(their_turn);   // warpgroup 1 takes no further turn
+            wait_pv_and_release(prev_stage);
+        }
+
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+            l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int row = q0 + 64 * wg + rq + 8 * i;
+            if (row >= hw) continue;
+            if (splits == 1) {
+                const float inv = 1.f / l_run[i];
+                __nv_bfloat16* ob = out + ((long)b * hw + row) * cv + cv0 + cq;
+#pragma unroll
+                for (int n = 0; n < CVT / 8; ++n)
+                    *reinterpret_cast<uint32_t*>(ob + 8 * n) =
+                        pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+            } else {
+                const long idx = ((long)split * batch + b) * hw + row;
+                float* ab = acc_part + idx * cv + cv0 + cq;
+#pragma unroll
+                for (int n = 0; n < CVT / 8; ++n)
+                    *reinterpret_cast<float2*>(ab + 8 * n) =
+                        make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+                if (blockIdx.y == 0 && lane % 4 == 0)
+                    ml_part[idx] = make_float2(m_run[i], l_run[i]);
+            }
+        }
+    }
+}
+
+// out[r, :] = sum_s 2^(m_s - M) acc_s[r, :] / sum_s 2^(m_s - M) l_s, M = max_s m_s.
+// One block of 128 threads per row of B * HW; 4 columns a thread per pass.
+__global__ void __launch_bounds__(128)
+memory_combine(const float* __restrict__ acc_part, const float2* __restrict__ ml_part,
+               __nv_bfloat16* __restrict__ out, int rows, int cv, int splits) {
+    const long row = blockIdx.x;
+    float m_max = -INFINITY;
+    for (int s = 0; s < splits; ++s) m_max = fmaxf(m_max, ml_part[s * (long)rows + row].x);
+    float den = 0.f;
+    for (int s = 0; s < splits; ++s) {
+        const float2 ml = ml_part[s * (long)rows + row];
+        den += exp2f(ml.x - m_max) * ml.y;
+    }
+    const float inv = 1.f / den;
+    for (int c = threadIdx.x * 4; c < cv; c += blockDim.x * 4) {
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < splits; ++s) {
+            const long idx = s * (long)rows + row;
+            const float w = exp2f(ml_part[idx].x - m_max);
+            const float4 a = *reinterpret_cast<const float4*>(acc_part + idx * cv + c);
+            sum.x += w * a.x;
+            sum.y += w * a.y;
+            sum.z += w * a.z;
+            sum.w += w * a.w;
+        }
+        uint2 packed;
+        packed.x = pack_bf16(sum.x * inv, sum.y * inv);
+        packed.y = pack_bf16(sum.z * inv, sum.w * inv);
+        *reinterpret_cast<uint2*>(out + row * cv + c) = packed;
+    }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// A bf16 [batch, rows, cols] tensor read in boxes of [1, 64, box_cols]; rows
+// past `rows` read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int cols, long rows, int batch, int box_cols,
+                CUtensorMapSwizzle swizzle) {
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+    const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)box_cols, 64, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+}
+
+template <int CK, int CVT>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* mask, void* out,
+                      void* acc_part, void* ml_part, int batch, int hw, int t, int cv,
+                      int splits, cudaStream_t stream) {
+    using L = Layout<CK, CVT>;
+    const CUtensorMapSwizzle swz =
+        L::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+    CUtensorMap q_map, k_map, v_map;
+    if (!encode_map(&q_map, q, CK, hw, batch, L::CKB, swz) ||
+        !encode_map(&k_map, k, CK, (long)t * hw, batch, L::CKB, swz) ||
+        !encode_map(&v_map, v, cv, (long)t * hw, batch, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+        return cudaErrorInvalidValue;
+    auto kernel = memory_read_tc<CK, CVT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((hw + BQ - 1) / BQ, cv / CVT, batch * splits);
+    kernel<<<grid, THREADS, L::SMEM, stream>>>(
+        q_map, k_map, v_map, static_cast<const uint8_t*>(mask),
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(acc_part),
+        static_cast<float2*>(ml_part), hw, t, cv, splits, LOG2E / sqrtf((float)CK));
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B, HW, Ck], k [B, T*HW, Ck], v [B, T*HW, Cv], mask [B, T] uint8, out
-// [B, HW, Cv]; all contiguous, on one device, q/k/v/out of one dtype
-// (is_bf16: bfloat16, else float32).  Ck in {32, 128}, Cv a multiple of
-// 128, T <= 256.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int otvm_memory_read(const void* q, const void* k, const void* v, const void* mask,
-                                void* out, int batch, int hw, int t, int ck, int cv,
-                                int is_bf16, void* stream) {
-    if (batch <= 0 || hw <= 0 || t <= 0 || t > MAX_T || cv <= 0 || cv % CVS != 0)
+// [B, HW, Cv]; all contiguous fp32 on one device.  Ck in {32, 128}, Cv a
+// multiple of 128, T <= 256.  Launches on `stream`, returns cudaGetLastError().
+extern "C" int otvm_memory_read_f32(const void* q, const void* k, const void* v,
+                                    const void* mask, void* out, int batch, int hw, int t,
+                                    int ck, int cv, void* stream) {
+    if (batch <= 0 || hw <= 0 || t <= 0 || t > MAX_T || cv <= 0 || cv % S_CVS != 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err =
-        is_bf16 ? dispatch_ck<__nv_bfloat16>(q, k, v, mask, out, batch, hw, t, ck, cv, s)
-                : dispatch_ck<float>(q, k, v, mask, out, batch, hw, t, ck, cv, s);
-    return (int)err;
+    switch (ck) {
+        case 32: return (int)launch_simple<32>(q, k, v, mask, out, batch, hw, t, cv, s);
+        case 128: return (int)launch_simple<128>(q, k, v, mask, out, batch, hw, t, cv, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The same in bf16, on the tensor cores, 16-byte aligned.  splits == 1:
+// writes out.  splits > 1: writes acc_part [splits, B, HW, Cv] fp32 and
+// ml_part [splits, B, HW, 2] fp32 for otvm_memory_combine; out is unused.
+extern "C" int otvm_memory_read_bf16(const void* q, const void* k, const void* v,
+                                     const void* mask, void* out, void* acc_part, void* ml_part,
+                                     int batch, int hw, int t, int ck, int cv, int splits,
+                                     void* stream) {
+    if (batch <= 0 || hw <= 0 || t <= 0 || t > MAX_T || cv <= 0 || cv % 128 != 0 ||
+        splits <= 0 || (long)batch * splits > 65535 || (long)t * hw > (1l << 31) - BK ||
+        (splits > 1 && (acc_part == nullptr || ml_part == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool wide = cv % 256 == 0;
+    switch (ck) {
+        case 32:
+            return (int)(wide ? launch_tc<32, 256>(q, k, v, mask, out, acc_part, ml_part, batch,
+                                                   hw, t, cv, splits, s)
+                              : launch_tc<32, 128>(q, k, v, mask, out, acc_part, ml_part, batch,
+                                                   hw, t, cv, splits, s));
+        case 128:
+            return (int)(wide ? launch_tc<128, 256>(q, k, v, mask, out, acc_part, ml_part, batch,
+                                                    hw, t, cv, splits, s)
+                              : launch_tc<128, 128>(q, k, v, mask, out, acc_part, ml_part, batch,
+                                                    hw, t, cv, splits, s));
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Merges otvm_memory_read_bf16's partials: acc_part [splits, rows, cv],
+// ml_part [splits, rows, 2] fp32 -> out [rows, cv] bf16 (rows = B * HW).
+extern "C" int otvm_memory_combine(const void* acc_part, const void* ml_part, void* out,
+                                   int rows, int cv, int splits, void* stream) {
+    if (rows <= 0 || cv <= 0 || cv % 4 != 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+    memory_combine<<<rows, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(acc_part), static_cast<const float2*>(ml_part),
+        static_cast<__nv_bfloat16*>(out), rows, cv, splits);
+    return (int)cudaGetLastError();
 }

@@ -1,20 +1,26 @@
-"""Space-time memory read: the hand-written CUDA kernel, its plain PyTorch
-version, and the wrapper that picks between them.
+"""Space-time memory read: the hand-written CUDA kernels, their plain PyTorch
+versions, and the wrappers that pick between them.
 
-The kernel (csrc/memory_attn.cu) replaces
-otvm_tpu/kernels/memory_attn.py::memory_read_pallas; its source note gives
-the bound on an H100 and what the simple design gives up.  It is compiled
-with nvcc for sm_90a into a shared library with a plain C entry, on first
-use, into build/ at the root of the checkout, and loaded with ctypes.
+The kernels (csrc/memory_attn.cu) replace
+otvm_tpu/kernels/memory_attn.py::memory_read_pallas; the source note gives
+the bound on an H100 and the design.  bf16 runs on the tensor cores (wgmma,
+K/V tiles brought in by TMA); where the grid alone would leave the card
+idle, the live K/V tiles are split across blocks, and `memory_combine`
+merges the blocks' partial results.  fp32 (the parity mode) runs on the
+CUDA cores.  The library is compiled with nvcc for sm_90a, with a plain C
+entry, on first use, into build/ at the root of the checkout, and loaded
+with ctypes.
 
-`memory_read` takes the plain version for tensors on the CPU and the kernel
-for CUDA tensors; on CUDA it launches the kernel or raises, and never falls
-back.  `launches` counts kernel launches (and nothing else), so a run can
-show that its main path went through the kernel.
+`memory_read` takes the plain version for tensors on the CPU and the
+kernels for CUDA tensors; on CUDA it launches them or raises, and never
+falls back.  `launches` counts memory-read kernel launches and
+`combine_launches` combine kernel launches (and nothing else), so a run can
+show that its main path went through them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -22,11 +28,12 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
 _SRC = Path(__file__).resolve().parent / "csrc" / "memory_attn.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,10 +41,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _KEY_DIMS = (32, 128)   # the real model and the scale=4 test model
 _CV_SLICE = 128
 _MAX_SLOTS = 256
+BQ = 128                # tensor-core kernel: query rows per block
+BK = 64                 # positions per K/V tile
+_MAX_SPLITS = 16
 
-launches = 0          # kernel launches since the last reset; see module doc
+launches = 0            # memory-read kernel launches since the last reset
+combine_launches = 0    # combine kernel launches since the last reset
 _lib: Optional[ctypes.CDLL] = None
-build_log = ""        # nvcc's output (registers, shared memory, spills)
+build_log = ""          # nvcc's output (registers, shared memory, spills)
+library_path: Optional[Path] = None
 
 
 def _nvcc() -> str:
@@ -51,7 +63,7 @@ def _nvcc() -> str:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source and flags) and load the kernel library."""
-    global _lib, build_log
+    global _lib, build_log, library_path
     if _lib is not None:
         return _lib
     src = _SRC.read_bytes()
@@ -72,12 +84,43 @@ def build() -> ctypes.CDLL:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     lib = ctypes.CDLL(str(so))
-    fn = lib.otvm_memory_read
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.otvm_memory_read_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.otvm_memory_read_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.otvm_memory_combine.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    for fn in (lib.otvm_memory_read_f32, lib.otvm_memory_read_bf16, lib.otvm_memory_combine):
+        fn.restype = i32
+    _lib, library_path = lib, so
     return lib
 
+
+# ---------------------------------------------------------------------------
+# launch geometry of the bf16 kernel
+# ---------------------------------------------------------------------------
+
+def value_tile(cv: int) -> int:
+    """Value columns per block: 256, or 128 where Cv is not a multiple of 256."""
+    return 256 if cv % 256 == 0 else 128
+
+
+def launch_geometry(b: int, hw: int, t: int, cv: int, sms: int = 132,
+                    _splits: Optional[int] = None) -> Tuple[int, int, int]:
+    """(query tiles, value tiles, splits) of one bf16 launch.  The split
+    count fills the card's `sms` with one block each, and gives each split
+    at least 4 of the bank's K/V tiles; `_splits` overrides it (a hook for
+    the card tests and the split benchmark)."""
+    q_tiles = -(-hw // BQ)
+    cv_tiles = cv // value_tile(cv)
+    splits = _splits
+    if splits is None:
+        n_tiles = -(-t * hw // BK)
+        splits = min(sms // (q_tiles * cv_tiles * b), n_tiles // 4, _MAX_SPLITS)
+    return q_tiles, cv_tiles, max(1, splits)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def memory_read_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                       slot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -98,9 +141,113 @@ def memory_read_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     return out.to(q_k.dtype)
 
 
+def memory_read_partials_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
+                               slot_mask: Optional[torch.Tensor],
+                               splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partial results of a read split over the memory positions, in the
+    split kernel's form.  Split s takes the s-th of `splits` contiguous
+    chunks of the T*HW positions and reads its live ones: the valid slots'
+    positions, or every position when no slot is valid.  Per split, m = max
+    score in log2 units (scores times log2(e) / sqrt(Ck), masked slots
+    -1e30), l = sum of p = 2^(score - m), acc = p (rounded to the value
+    dtype) times V.  -> acc [S, B, HW, Cv] fp32, ml [S, B, HW, 2] fp32; a
+    split with no live position has m = -inf, l = acc = 0.  Merging the
+    splits is exact for any partition, so the kernel's own (by K/V tiles)
+    need not be this one."""
+    b, t, hw, ck = m_k.shape
+    cv = m_v.shape[-1]
+    kv_len = t * hw
+    v = m_v.reshape(b, kv_len, cv).float()
+    x = torch.einsum("bqc,bkc->bqk", q_k.float(), m_k.reshape(b, kv_len, ck).float())
+    x = x * (_LOG2E / math.sqrt(ck))
+    mask = (torch.ones((b, t), dtype=torch.bool, device=q_k.device) if slot_mask is None
+            else slot_mask.bool()).repeat_interleave(hw, dim=-1)           # [B, T*HW]
+    x = x.masked_fill(~mask[:, None, :], _NEG_INF)
+    live = mask | ~mask.any(dim=-1, keepdim=True)
+    acc, ml = [], []
+    for s in range(splits):
+        lo, hi = s * kv_len // splits, (s + 1) * kv_len // splits
+        xs = x[:, :, lo:hi].masked_fill(~live[:, None, lo:hi], -math.inf)
+        m = xs.amax(dim=-1) if hi > lo else xs.new_full(xs.shape[:2], -math.inf)
+        p = torch.exp2(xs - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        acc.append(p.to(m_v.dtype).float() @ v[:, lo:hi])
+        ml.append(torch.stack([m, p.sum(dim=-1)], dim=-1))
+    return torch.stack(acc), torch.stack(ml)
+
+
+def combine_plain(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Merges split partials: acc [S, ..., Cv], ml [S, ..., 2] -> [..., Cv]
+    in `dtype`: sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s."""
+    m, l = ml[..., 0], ml[..., 1]
+    w = torch.exp2(m - m.max(dim=0).values)
+    return ((w[..., None] * acc).sum(dim=0) / (w * l).sum(dim=0)[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _on_own_card(fn):
+    """Runs a wrapper with its first tensor's card as the current one: the
+    kernels launch on the current card's current stream.  The switch costs
+    host time, so it is made only where the card is not current already."""
+    @functools.wraps(fn)
+    def wrapper(x, *args, **kwargs):
+        if x.is_cuda and x.device.index != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                return fn(x, *args, **kwargs)
+        return fn(x, *args, **kwargs)
+    return wrapper
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current stream of x's card (the current card, by `_on_own_card`)."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _combine(lib: ctypes.CDLL, acc: torch.Tensor, ml: torch.Tensor, stream: int) -> torch.Tensor:
+    global combine_launches
+    splits, b, hw, cv = acc.shape
+    out = torch.empty((b, hw, cv), dtype=torch.bfloat16, device=acc.device)
+    _check(lib.otvm_memory_combine(acc.data_ptr(), ml.data_ptr(), out.data_ptr(),
+                                   b * hw, cv, splits, stream), "memory_combine")
+    combine_launches += 1
+    return out
+
+
+@_on_own_card
+def memory_combine_cuda(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+    """The combine kernel: acc [S, B, HW, Cv], ml [S, B, HW, 2] fp32 on
+    the card -> [B, HW, Cv] bf16.  Raises on what it does not take."""
+    if not (acc.is_cuda and ml.is_cuda):
+        raise ValueError("memory_combine_cuda needs CUDA tensors")
+    if acc.dtype != torch.float32 or ml.dtype != torch.float32:
+        raise TypeError("memory_combine_cuda: partials must be float32")
+    if acc.dim() != 4 or tuple(ml.shape) != (*acc.shape[:3], 2):
+        raise ValueError(f"memory_combine_cuda: acc {tuple(acc.shape)}, ml {tuple(ml.shape)}")
+    if not (acc.is_contiguous() and ml.is_contiguous()) or acc.shape[-1] % 4:
+        raise ValueError("memory_combine_cuda: want contiguous partials, Cv a multiple of 4")
+    return _combine(build(), acc, ml, _stream(acc))
+
+
+@_on_own_card
 def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
-                     slot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel.  Raises on what it does not take; never falls back."""
+                     slot_mask: Optional[torch.Tensor] = None,
+                     _splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel (bf16: tensor cores, fp32: CUDA cores), on the inputs'
+    card.  The bf16 split count comes from the shape (`launch_geometry`);
+    `_splits` overrides it, for the card tests and the split benchmark.
+    Raises on what it does not take; never falls back."""
     global launches
     if not (q_k.is_cuda and m_k.is_cuda and m_v.is_cuda):
         raise ValueError("memory_read_cuda needs CUDA tensors")
@@ -121,23 +268,44 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                          f"(want a multiple of {_CV_SLICE}), T={t} (max {_MAX_SLOTS})")
     if not (q_k.is_contiguous() and m_k.is_contiguous() and m_v.is_contiguous()):
         raise ValueError("memory_read_cuda: inputs must be contiguous")
+    bf16 = q_k.dtype == torch.bfloat16
+    if bf16 and any(x.data_ptr() % 16 for x in (q_k, m_k, m_v)):
+        raise ValueError("memory_read_cuda: bf16 inputs must be 16-byte aligned (TMA)")
+    if not bf16 and _splits not in (None, 1):
+        raise ValueError("memory_read_cuda: the fp32 kernel does not split")
     if slot_mask is None:
         mask = torch.ones((b, t), dtype=torch.uint8, device=q_k.device)
+    elif tuple(slot_mask.shape) != (b, t):
+        raise ValueError(f"memory_read_cuda: slot_mask {tuple(slot_mask.shape)} != {(b, t)}")
+    elif (slot_mask.dtype in (torch.bool, torch.uint8) and slot_mask.device == q_k.device
+          and slot_mask.is_contiguous()):
+        mask = slot_mask    # one byte a slot, 0 or 1, as the kernel reads it
     else:
-        if tuple(slot_mask.shape) != (b, t):
-            raise ValueError(f"memory_read_cuda: slot_mask {tuple(slot_mask.shape)} != {(b, t)}")
         mask = slot_mask.to(device=q_k.device, dtype=torch.uint8).contiguous()
     lib = build()
-    out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
-    with torch.cuda.device(q_k.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.otvm_memory_read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
-                                   mask.data_ptr(), out.data_ptr(), b, hw, t, ck, cv,
-                                   int(q_k.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"memory_read kernel launch failed: CUDA error {err}")
+    stream = _stream(q_k)
+    if not bf16:
+        out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
+        _check(lib.otvm_memory_read_f32(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
+                                        mask.data_ptr(), out.data_ptr(), b, hw, t, ck, cv,
+                                        stream), "memory_read")
+        launches += 1
+        return out
+    _, _, n_split = launch_geometry(b, hw, t, cv, _sm_count(q_k.device.index), _splits)
+    if n_split == 1:
+        out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
+        _check(lib.otvm_memory_read_bf16(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
+                                         mask.data_ptr(), out.data_ptr(), None, None,
+                                         b, hw, t, ck, cv, 1, stream), "memory_read")
+        launches += 1
+        return out
+    acc = torch.empty((n_split, b, hw, cv), dtype=torch.float32, device=q_k.device)
+    ml = torch.empty((n_split, b, hw, 2), dtype=torch.float32, device=q_k.device)
+    _check(lib.otvm_memory_read_bf16(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
+                                     mask.data_ptr(), None, acc.data_ptr(), ml.data_ptr(),
+                                     b, hw, t, ck, cv, n_split, stream), "memory_read")
     launches += 1
-    return out
+    return _combine(lib, acc, ml, stream)
 
 
 def memory_read(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,

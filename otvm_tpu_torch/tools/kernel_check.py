@@ -1,0 +1,69 @@
+"""Holding a kernel to its plain version, and timing it, on a CUDA card.
+
+`rel_err` and its tolerances are the comparison that chip_smoke.py and the
+card tests make; `control` makes the lower-precision input that shows the
+comparison can fail.  `device_ms` and `event_ms` are the timers of
+chip_smoke.py and tools/bench_memory_read.py.
+"""
+from __future__ import annotations
+
+import torch
+
+# Tolerances of rel_err, each between the errors of sound and control
+# results (tools/tolerance_bands.py; PERF.md).  Read, kernel vs plain: bf16
+# rounds p and the output at different points in the two (sound ~3e-3);
+# fp32 differs by summation order (sound ~1e-6).  `control` inputs give
+# 2.5e-2..4.8e-2 (bf16) and 2e-4..3.8e-4 (fp32).
+READ_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# Combine, kernel vs plain: the same fp32 partials merged and rounded once
+# to bf16 (sound ~2e-5); partials rounded to bf16 before the merge give
+# ~2.5e-3.
+COMBINE_TOL = 1e-3
+# The control's narrower type: fp8 e4m3 for bf16, fp16 (TF32's mantissa)
+# for fp32.
+_NARROWER = {torch.bfloat16: torch.float8_e4m3fn, torch.float32: torch.float16}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want||, in fp32 over the whole tensor: the error
+    on the output's own scale, whatever its size."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def control(x: torch.Tensor) -> torch.Tensor:
+    """x rounded through the next narrower type, back in x's dtype."""
+    return x.to(_NARROWER[x.dtype]).to(x.dtype)
+
+
+def device_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
+    """Median device time of one call, by CUDA events around each call.
+    The card is kept busy (torch.cuda._sleep, ~1 ms) while the host
+    enqueues the call, so the events time the device's work, not the
+    host's.  `flush` (a tensor larger than L2) is rewritten before each
+    call so the call finds the cache cold, as between frames of the
+    stream."""
+    return _median_ms(fn, flush, reps, hold=True)
+
+
+def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
+    """As device_ms, without holding the card: where the host enqueues the
+    call slower than the card runs it, the events time the host."""
+    return _median_ms(fn, flush, reps, hold=False)
+
+
+def _median_ms(fn, flush, reps, hold):
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        if hold:
+            torch.cuda._sleep(2_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]

@@ -98,6 +98,9 @@ def trace(ev: StreamingEvaluator, frames, tri, top: int):
         "device_ops_per_frame": sum(e.count for e in kernels) / len(frames),
         "top": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "count": e.count}
                 for e in kernels[:top]],
+        # the port's own kernels (memory_read_*, memory_combine), wherever they rank
+        "memory_kernels": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "count": e.count}
+                           for e in kernels if "memory_" in e.key],
     }
 
 
@@ -140,6 +143,8 @@ def main():
           f"({t['device_busy_share']:.1%}), {t['device_ops_per_frame']:.0f} device ops/frame")
     for e in t["top"]:
         print(f"  {e['device_ms']:9.3f} ms {e['count']:6d}x  {e['name']}")
+    for e in t["memory_kernels"]:
+        print(f"  memory read: {e['device_ms']:9.3f} ms {e['count']:6d}x  {e['name']}")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

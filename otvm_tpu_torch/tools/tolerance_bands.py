@@ -1,0 +1,52 @@
+"""The errors that the kernel checks' tolerances (tools/kernel_check.py) must
+separate, from the plain split arithmetic on the CPU.
+
+    python -m otvm_tpu_torch.tools.tolerance_bands
+
+For each shape and dtype: the sound error, `memory_read_partials_plain` (1
+and 8 splits) merged by `combine_plain` against `memory_read_plain` (the
+split kernel's arithmetic: p rounded against a running max); the control's,
+the plain read on inputs rounded through a narrower type (`control`).  For
+the combine: the fp32 merge against an fp64 one (sound) and partials
+rounded to bf16 before the merge (control).  1088x1920 takes 256 query rows
+of its 8160, to keep the score matrix small.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import memory_attn as ma
+from .kernel_check import control, rel_err
+
+# b, hw, t, slot mask, query rows, label
+CASES = [(1, 1024, 6, [1, 1, 1, 1, 1, 0], 1024, "512p count 5"),
+         (1, 1024, 6, [0] * 6, 1024, "512p count 0"),
+         (1, 1024, 6, [1, 0, 0, 0, 0, 0], 1024, "512p count 1"),
+         (2, 70, 3, [[1, 0, 1], [0, 1, 1]], 70, "HW=70 per-row masks"),
+         (1, 8160, 3, [1, 1, 0], 256, "1088x1920 count 2")]
+
+
+def main():
+    torch.manual_seed(0)
+    for b, hw, t, rows, nq, label in CASES:
+        m = torch.tensor(rows, dtype=torch.bool)
+        m = m[None].expand(b, t) if m.dim() == 1 else m
+        q = torch.randn(b, hw, 128)[:, :nq]
+        k, v = torch.randn(b, t, hw, 128), torch.randn(b, t, hw, 512)
+        for dt in (torch.float32, torch.bfloat16):
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            want = ma.memory_read_plain(qq, kk, vv, m)
+            sound = [rel_err(ma.combine_plain(*ma.memory_read_partials_plain(qq, kk, vv, m, s), dt),
+                             want) for s in (1, 8)]
+            ctl = rel_err(ma.memory_read_plain(control(qq), control(kk), control(vv), m), want)
+            print(f"{label:22s} {str(dt)[6:]:9s} read: sound {sound[0]:.3e} (1 split) "
+                  f"{sound[1]:.3e} (8 splits), control {ctl:.3e}")
+        acc, ml = ma.memory_read_partials_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), m, 8)
+        want = ma.combine_plain(acc, ml, torch.bfloat16)
+        sound = rel_err(ma.combine_plain(acc.double(), ml.double(), torch.bfloat16), want)
+        ctl = rel_err(ma.combine_plain(acc.bfloat16().float(), ml, torch.bfloat16), want)
+        print(f"{label:22s} combine: sound {sound:.3e}, control {ctl:.3e}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,11 @@
 """Port memory read (otvm_tpu_torch.kernels.memory_attn).
 
 On the CPU: the plain version against the JAX package's XLA path and its
-Pallas kernel (interpret mode), fp32, at the JAX tests' shapes.  On a card:
-the CUDA kernel against the plain version (skipped without one).  JAX is
+Pallas kernel (interpret mode), fp32, at the JAX tests' shapes; the bf16
+kernel's split arithmetic (plain partials merged by the plain combine)
+against the plain read; and the launch geometry's coverage.  On a card:
+the CUDA kernels against their plain versions, by the norm-relative error
+that a lower-precision control fails (skipped without a card).  JAX is
 imported by the tests that use it, so the card's tests run where JAX is
 absent: `python -m pytest --noconftest -m cuda tests/test_torch_memory_attn.py`."""
 import numpy as np
@@ -10,6 +13,7 @@ import pytest
 import torch
 
 from otvm_tpu_torch.kernels import memory_attn as ma
+from otvm_tpu_torch.tools.kernel_check import COMBINE_TOL, READ_TOL, control, rel_err
 
 # the JAX tests' shapes (tests/test_memory_attn_pallas.py): (hw, t, mask)
 CASES = [(64, 2, None), (96, 3, [1, 1, 0]), (128, 5, [1, 0, 0, 0, 0]), (70, 3, None)]
@@ -93,22 +97,146 @@ def test_wrapper_uses_plain_on_cpu():
         ma.memory_read_cuda(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
 
 
-@pytest.mark.cuda
+# (b, hw, t, per-row masks, splits): ragged query tiles (70), splits that
+# straddle slots (70, 48), empty, non-prefix and per-row masks
+SPLIT_CASES = [
+    (2, 70, 3, [[1, 0, 1], [0, 1, 1]], 3),
+    (1, 48, 3, [[0, 0, 0]], 2),
+    (1, 100, 4, [[0, 1, 0, 1]], 5),
+    (2, 130, 2, [[1, 1], [1, 0]], 1),
+    (1, 64, 6, [[1, 0, 0, 0, 0, 0]], 4),   # splits with no live position
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,hw,t,rows", [
-    (1, 1024, 6, [1, 1, 1, 1, 1, 0]), (1, 1024, 6, [1, 0, 0, 0, 0, 0]),
-    (2, 70, 3, [1, 0, 1]), (1, 64, 3, [0, 0, 0])])
-def test_kernel_matches_plain_on_cuda(dtype, b, hw, t, rows):
+@pytest.mark.parametrize("b,hw,t,rows,splits", SPLIT_CASES)
+def test_split_partials_combine_to_plain(dtype, b, hw, t, rows, splits):
+    """Merging the per-split partials (m, l, acc) gives the unsplit read."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _inputs(b, hw, t, seed=7))
+    m = torch.tensor(rows, dtype=torch.bool)
+    acc, ml = ma.memory_read_partials_plain(q, k, v, m, splits)
+    assert acc.shape == (splits, b, hw, 512) and ml.shape == (splits, b, hw, 2)
+    got = ma.combine_plain(acc, ml, dt)
+    want = ma.memory_read_plain(q, k, v, m)
+    assert got.dtype == dt and torch.isfinite(got.float()).all()
+    if dt == torch.float32:     # summation order only
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=1e-5)
+    else:   # p rounded against each split's own max, not after normalising
+        assert rel_err(got, want) <= READ_TOL[dt]
+        assert rel_err(ma.memory_read_plain(control(q), control(k), control(v), m), want) \
+            > READ_TOL[dt]
+
+
+@pytest.mark.parametrize("b,hw,t,ck,cv,rows", [
+    (1, 1024, 6, 128, 512, [1, 1, 1, 1, 1, 0]),       # 512p, count 5
+    (1, 1024, 6, 128, 512, [1, 0, 0, 0, 0, 0]),       # 512p, count 1
+    (1, 8160, 3, 128, 512, [1, 1, 0]),                # 1088x1920, count 2
+    (2, 70, 3, 128, 512, [0, 1, 0]),                  # ragged, non-prefix
+    (1, 48, 3, 128, 384, [0, 0, 0]),                  # HW < 64, empty, Cv % 256 != 0
+    (2, 64, 4, 32, 128, [1, 1, 0, 1]),                # the scale-4 model's widths
+])
+def test_launch_geometry_covers_each_output_and_position_once(b, hw, t, ck, cv, rows):
+    """The bf16 launch's blocks cover every (query row, value column) once,
+    in one wave on an H100 unless the split count is forced; the plain
+    split partials (the combine's input) read every live position once.
+    The kernel's own K/V coverage is held by the card tests (1 and 4
+    splits)."""
+    for splits in (None, 1, 3):
+        q_tiles, cv_tiles, n_split = ma.launch_geometry(b, hw, t, cv, _splits=splits)
+        cvt = ma.value_tile(cv)
+        assert cv_tiles * cvt == cv and q_tiles * ma.BQ >= hw > (q_tiles - 1) * ma.BQ
+        if splits is None:
+            assert q_tiles * cv_tiles * b * n_split <= 132   # one wave on an H100
+            assert n_split == 1 or n_split * 4 * ma.BK <= t * hw   # >= 4 K/V tiles a split
+        else:
+            assert n_split == splits
+        # one query row, scores 0; V = (1, position % 64, position // 64):
+        # the merged partials' sums (integers below 2^24, exact in fp32)
+        # give the count and two sums of the positions read
+        pos = torch.arange(t * hw).reshape(1, t, hw, 1).expand(b, t, hw, 1)
+        v = torch.cat([torch.ones_like(pos), pos % 64, pos // 64], dim=-1).float()
+        acc, ml = ma.memory_read_partials_plain(
+            torch.zeros(b, 1, ck), torch.zeros(b, t, hw, ck), v,
+            torch.tensor(rows, dtype=torch.bool).expand(b, t), n_split)
+        valid = np.repeat(np.asarray(rows, bool), hw) if any(rows) else np.ones(t * hw, bool)
+        live = np.flatnonzero(valid)
+        want = [len(live), (live % 64).sum(), (live // 64).sum()]
+        np.testing.assert_array_equal(acc.sum(dim=0)[:, 0].numpy(), np.tile([want], (b, 1)))
+        np.testing.assert_array_equal(ml[..., 1].sum(dim=0).numpy(), np.full((b, 1), len(live)))
+
+
+def _cuda_ready():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,splits", [   # the fp32 kernel does not split
+    ("float32", None), ("bfloat16", None), ("bfloat16", 1), ("bfloat16", 4)])
+@pytest.mark.parametrize("b,hw,t,rows,ck,cv", [
+    (1, 1024, 6, [1, 1, 1, 1, 1, 0], 128, 512), (1, 1024, 6, [1, 0, 0, 0, 0, 0], 128, 512),
+    (2, 70, 3, [1, 0, 1], 128, 512), (1, 64, 3, [0, 0, 0], 128, 512),
+    (2, 70, 3, [[1, 0, 1], [0, 1, 1]], 128, 512),     # per-row masks, ragged, straddling
+    (1, 8160, 3, [1, 1, 0], 128, 512),                # 1088x1920, count 2
+    (1, 48, 3, [0, 1, 0], 128, 512),                  # HW < 64, non-prefix
+    (2, 64, 4, [[1, 1, 0, 0], [0, 0, 0, 1]], 32, 128),  # the scale-4 model's widths
+    (1, 100, 2, [1, 1], 128, 384),                    # Cv not a multiple of 256
+])
+def test_kernel_matches_plain_on_cuda(request, dtype, splits, b, hw, t, rows, ck, cv):
+    _cuda_ready()
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in _inputs(b, hw, t, seed=6))
-    m = torch.from_numpy(_mask(rows, b)).cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(dt)
+               for a in _inputs(b, hw, t, seed=6, ck=ck, cv=cv))
+    m = np.asarray(rows, bool)
+    m = torch.from_numpy(np.tile(m[None], (b, 1)) if m.ndim == 1 else m).cuda()
     before = ma.launches
-    got = ma.memory_read(q, k, v, m)
+    got = ma.memory_read_cuda(q, k, v, m, _splits=splits)
     torch.cuda.synchronize()
     assert ma.launches == before + 1
     want = ma.memory_read_plain(q, k, v, m)
-    tol = dict(atol=1e-4, rtol=1e-4) if dt == torch.float32 else dict(atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.isfinite(got.float()).all()
+    # the same read on inputs of a narrower type fails the check
+    rel, rel_ctl = rel_err(got, want), rel_err(
+        ma.memory_read_plain(control(q), control(k), control(v), m), want)
+    request.node.user_properties += [("rel_err", rel), ("control_rel_err", rel_ctl)]
+    assert rel <= READ_TOL[dt] < rel_ctl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,t,rows,splits", SPLIT_CASES)
+def test_combine_matches_plain_on_cuda(request, b, hw, t, rows, splits):
+    _cuda_ready()
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _inputs(b, hw, t, seed=8))
+    acc, ml = ma.memory_read_partials_plain(q, k, v, torch.tensor(rows, device="cuda"), splits)
+    before = ma.combine_launches
+    got = ma.memory_combine_cuda(acc, ml)
+    torch.cuda.synchronize()
+    assert ma.combine_launches == before + 1
+    # both merge the same fp32 partials and round once to bf16; partials
+    # rounded to bf16 before the merge fail the check
+    want = ma.combine_plain(acc, ml, torch.bfloat16)
+    rel, rel_ctl = rel_err(got, want), rel_err(
+        ma.combine_plain(acc.bfloat16().float(), ml, torch.bfloat16), want)
+    request.node.user_properties += [("rel_err", rel), ("control_rel_err", rel_ctl)]
+    assert rel <= COMBINE_TOL < rel_ctl
+
+
+@pytest.mark.cuda
+def test_kernels_run_on_a_card_that_is_not_current():
+    """Tensors on the second card, the first current: the wrappers launch
+    on the tensors' card (bf16 with a split, and fp32)."""
+    _cuda_ready()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    mask = torch.tensor([[True, True, False]], device="cuda:1")
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(a).to("cuda:1", dt) for a in _inputs(1, 1024, 3, seed=9))
+        before = ma.launches
+        got = ma.memory_read_cuda(q, k, v, mask)
+        assert got.device == q.device and ma.launches == before + 1
+        torch.cuda.synchronize(q.device)
+        assert rel_err(got, ma.memory_read_plain(q, k, v, mask)) <= READ_TOL[dt]
+    assert torch.cuda.current_device() == 0
