@@ -6,24 +6,29 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the memory-read kernels from otvm_tpu_torch/kernels/csrc (nvcc,
-     sm_90a), timed; count the tensor-core (HGMMA) and TMA (UTMALDG)
-     instructions in the library: the bf16 kernel must have both;
+     sm_90a), timed; print ptxas's registers and spills; count the
+     tensor-core instructions (HGMMA: the bf16 wgmma; HMMA ... TF32: the
+     fp32 3xTF32 mma.sync) and TMA loads (UTMALDG) in the library: each
+     must be there;
   3. the kernel against its plain PyTorch version on the card, fp32 (TF32
-     off) and bf16, at the stream's shapes (512p: HW=1024, T=6, 1..6 valid
-     slots; 1088x1920: HW=8160, T=3), ragged tiles with a non-prefix mask,
-     and no valid slot; then its time at 512p count 5 and 1088x1920 count
-     2 beside the plain version's, SDPA's (a yardstick only: the port
-     never calls it) and the bound; the combine kernel (which merges the
-     split bf16 read at 512p) against its plain version, timed.  Each
-     comparison is the norm-relative error (otvm_tpu_torch/tools/
-     kernel_check.py), and a lower-precision control must fail it;
+     off in the plain version) and bf16, at the stream's shapes (512p:
+     HW=1024, T=6, 1..6 valid slots; 1088x1920: HW=8160, T=3), ragged
+     tiles with a non-prefix mask, and no valid slot; then its time at
+     512p count 5 and 1088x1920 count 2 beside the plain version's, SDPA's
+     (a yardstick only: the port never calls it) and the bound (fp32: at
+     the 3xTF32 rate, the CUDA-core bound printed beside it); the combine
+     kernel (which merges the split reads at 512p), bf16 and fp32 output,
+     against its plain version, timed.  Each comparison is the
+     norm-relative error (otvm_tpu_torch/tools/kernel_check.py), and a
+     lower-precision control must fail it;
   4. the full-width stage-4 stream through StreamingEvaluator.run_video:
      512x512, a bank of at most 5, memorize every 10th frame, random
-     weights from a seed, fp32, once with the kernel and once with the
-     plain read.  The kernel must be launched once per segment call
-     (frames - 1), every one of its reads must match the plain read on the
-     same inputs, and the two streams must agree on frames 0 and 1 (later
-     frames are printed: see the note in main);
+     weights from a seed, fp32 (the evaluator's default dtype), once with
+     the kernel and once with the plain read.  The read kernel and the
+     combine must each be launched once per segment call (frames - 1),
+     every read must match the plain read on the same inputs, and the two
+     streams must agree on frames 0 and 1 (later frames are printed: see
+     the note in main);
   5. the same stream in bf16 (the serving mode): a lockstep-checked
      warm-up, then timed: frames/sec, finite outputs, and frame 0 within a
      loose bound of the fp32 stream.
@@ -46,7 +51,10 @@ H = W = 512
 N_FRAMES = 30
 MAX_MEM = 5
 SKIP = 10
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM dense, CUDA-core fp32
+# H100 SXM dense peaks.  The fp32 kernel runs 3xTF32: three TF32 products
+# (495 TFLOP/s) for each fp32 one.  On the CUDA cores fp32 is 67 TFLOP/s.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+FP32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
 TIMED = [(1, 1024, 6, 5, "512p count 5"), (1, 8160, 3, 2, "1088x1920 count 2")]   # b, hw, t, count
 
@@ -59,21 +67,40 @@ def card_line() -> str:
 
 
 def sass_counts(ma):
-    """Phase 2: HGMMA / UTMALDG instructions in the built library."""
+    """Phase 2: HGMMA, TF32 HMMA and UTMALDG instructions in the built
+    library."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(ma.library_path)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    return {"HGMMA": len(re.findall(r"\bHGMMA\b", sass)),
+            "HMMA TF32": len(re.findall(r"\bHMMA\.\S*TF32\b", sass)),
+            "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass))}
+
+
+def ptxas_report(log):
+    """[(kernel<template args>, its -v lines: registers, spills, C75xx
+    warnings)] from nvcc's output."""
+    report = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d(memory_(?:read_tc|read_f32tc|combine))I(.*?)EEv", line)
+            name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2))) or m.group(2)}>" \
+                if m else line.strip()
+            report.append((name, []))
+        elif report and ("registers" in line or "spill" in line or "C75" in line):
+            report[-1][1].append(line.split(":", 1)[-1].strip())
+    return report
 
 
 def read_cost(dt, b, hw, count, ck=128, cv=512, t=None):
-    """(bound ms, bound_by) of one read: operations on this run's valid
-    positions over the dtype's peak, bytes (q, the valid bank, out, mask)
-    over the memory rate."""
+    """(bound ms, bound_by, fp32 CUDA-core bound ms or None) of one read:
+    operations on this run's valid positions over the kernel's peak (fp32:
+    3xTF32), bytes (q, the valid bank, out, mask) over the memory rate."""
     flops = 2.0 * b * hw * (count * hw) * (ck + cv)
     nbytes = dt.itemsize * (b * hw * ck + b * count * hw * (ck + cv) + b * hw * cv) + b * t
     name = str(dt).split(".")[-1]
     t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    cuda_cores = 1e3 * max(flops / FP32_CUDA_CORES, t_bytes) if name == "float32" else None
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", cuda_cores
 
 
 def check(got, want, tol, what, ctl=None):
@@ -98,8 +125,8 @@ def check(got, want, tol, what, ctl=None):
 def kernel_phase(torch, ma):
     """Phase 3: kernel vs plain at the stream's shapes; timings at 512p
     count 5 and 1088x1920 count 2; the combine kernel at 512p."""
-    from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, READ_TOL, control, device_ms,
-                                                   event_ms)
+    from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, READ_TOL, combine_control,
+                                                   control, device_ms, event_ms)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     prefix = lambda b, t, c: torch.arange(t, device="cuda")[None].expand(b, t) < c
@@ -138,7 +165,7 @@ def kernel_phase(torch, ma):
                 attn_mask=pos_mask)
             check(sdpa()[:, 0], ma.memory_read_plain(q, k, v, mask), READ_TOL[dt],
                   f"SDPA yardstick {dname} {label}")
-            bound_ms, bound_by = read_cost(dt, b, hw, count, t=t)
+            bound_ms, bound_by, cuda_cores_ms = read_cost(dt, b, hw, count, t=t)
             row = timing[dname, label] = dict(
                 ms=device_ms(lambda: ma.memory_read(q, k, v, mask), flush=flush),
                 event_ms=event_ms(lambda: ma.memory_read(q, k, v, mask), flush=flush),
@@ -146,36 +173,41 @@ def kernel_phase(torch, ma):
                 library_ms=device_ms(sdpa, flush=flush),
                 bound_ms=bound_ms, bound_by=bound_by, rel_err=errs[dname, label][0],
                 max_abs_err=errs[dname, label][1])
+            if cuda_cores_ms is not None:
+                row["bound_cuda_cores_ms"] = cuda_cores_ms
             print(f"  time {dname:8s} {label}: " + ", ".join(
                 f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
                 for key, val in row.items()))
-            if dname == "bfloat16":
-                faster = row["ms"] < min(row["plain_ms"], row["library_ms"])
-                print(f"  bf16 kernel faster than plain and SDPA at {label}: {faster}")
+            faster = row["ms"] < min(row["plain_ms"], row["library_ms"])
+            print(f"  {'bf16' if dname == 'bfloat16' else 'fp32'} kernel faster than plain "
+                  f"and SDPA at {label}: {faster}")
 
-    # the combine kernel, on the split partials of the stream's 512p read
+    # the combine kernel, on the split partials of the stream's 512p read,
+    # merged into each dtype
     b, hw, t, count, label = TIMED[0]
-    q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(torch.bfloat16)
     _, _, splits = ma.launch_geometry(b, hw, t, 512, torch.cuda.get_device_properties(0)
                                       .multi_processor_count)
-    acc, ml = ma.memory_read_partials_plain(q, k, v, prefix(b, t, count), splits)
-    got = ma.memory_combine_cuda(acc, ml)
-    want = ma.combine_plain(acc, ml, torch.bfloat16)
-    # control: the partials rounded to bf16 before the merge
-    rel, err = check(got, want, COMBINE_TOL, f"combine bf16 {label}",
-                     ma.combine_plain(acc.bfloat16().float(), ml, torch.bfloat16))
-    nbytes = acc.numel() * 4 + ml.numel() * 4 + got.numel() * 2
-    timing["combine", label] = row = dict(
-        ms=device_ms(lambda: ma.memory_combine_cuda(acc, ml), flush=flush),
-        event_ms=event_ms(lambda: ma.memory_combine_cuda(acc, ml), flush=flush),
-        plain_ms=device_ms(lambda: ma.combine_plain(acc, ml, torch.bfloat16), flush=flush),
-        library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
-        rel_err=rel, max_abs_err=err, splits=splits)
-    print(f"  time combine  {label} ({splits} splits): " + ", ".join(
-        f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
-        for key, val in row.items()))
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
+        k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
+        v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
+        acc, ml = ma.memory_read_partials_plain(q, k, v, prefix(b, t, count), splits)
+        got = ma.memory_combine_cuda(acc, ml, dt)
+        want = ma.combine_plain(acc, ml, dt)
+        # control: the partials rounded (through bf16, or fp16 for fp32) before the merge
+        rel, err = check(got, want, COMBINE_TOL[dt], f"combine {dname} {label}",
+                         ma.combine_plain(combine_control(acc, dt), ml, dt))
+        nbytes = acc.numel() * 4 + ml.numel() * 4 + got.numel() * dt.itemsize
+        timing[f"combine {dname}", label] = row = dict(
+            ms=device_ms(lambda: ma.memory_combine_cuda(acc, ml, dt), flush=flush),
+            event_ms=event_ms(lambda: ma.memory_combine_cuda(acc, ml, dt), flush=flush),
+            plain_ms=device_ms(lambda: ma.combine_plain(acc, ml, dt), flush=flush),
+            library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+            rel_err=rel, max_abs_err=err, splits=splits)
+        print(f"  time combine {dname} {label} ({splits} splits): " + ", ".join(
+            f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in row.items()))
     return timing
 
 
@@ -259,12 +291,16 @@ def main() -> int:
     t0 = time.perf_counter()
     ma.build()
     print(f"  built in {time.perf_counter() - t0:.2f} s")
-    for line in ma.build_log.splitlines():
-        if "registers" in line or "spill" in line or "C75" in line:
-            print("  ptxas:", line.strip())
+    report = ptxas_report(ma.build_log)
+    for kernel, lines in report:
+        print(f"  ptxas {kernel}: " + "; ".join(lines))
+    f32 = [lines for kernel, lines in report if kernel.startswith("memory_read_f32tc")]
+    assert f32 and all(any(" 0 bytes spill stores, 0 bytes spill loads" in line for line in lines)
+                       for lines in f32), "the fp32 kernel spills registers"
     sass = sass_counts(ma)
     print(f"  SASS of {ma.library_path.name}: " + ", ".join(f"{op} {n}" for op, n in sass.items()))
-    assert sass["HGMMA"] > 0, "no tensor-core (HGMMA) instruction in the built library"
+    assert sass["HGMMA"] > 0, "no wgmma (HGMMA) instruction in the built library"
+    assert sass["HMMA TF32"] > 0, "no TF32 mma.sync (HMMA ... TF32) in the built library"
     assert sass["UTMALDG"] > 0, "no TMA load (UTMALDG) in the built library"
 
     print("phase 3: kernel vs plain")
@@ -277,18 +313,21 @@ def main() -> int:
     proto = EvalProtocol(memory_max_num=MAX_MEM, memory_skip_frame=SKIP, dtype="fp32")
     ev = StreamingEvaluator(stm_sd, fba_sd, proto)
     ev_plain = StreamingEvaluator(stm_sd, fba_sd, proto, memory_impl="plain")
-    ma.launches = 0
+    torch.cuda.synchronize()
+    ma.launches = ma.combine_launches = 0
     with lockstep_check(torch, ma, "float32") as read_errs:
         ka, kt, kfps = ev.run_video(frames, tri)
-    fp32_launches = ma.launches
+    fp32_launches, fp32_combine_launches = ma.launches, ma.combine_launches
     pa, pt, _ = ev_plain.run_video(frames, tri)
-    print(f"  kernel launches in the kernel stream: {fp32_launches} "
-          f"(segment calls: {N_FRAMES - 1}); every read vs plain on its own inputs: "
-          f"rel err <= {max(read_errs):.3e}; fp32 {kfps:.2f} frames/s (lockstep-checked)")
+    print(f"  launches in the fp32 kernel stream: memory_read {fp32_launches}, memory_combine "
+          f"{fp32_combine_launches} (segment calls: {N_FRAMES - 1}); every read vs plain on "
+          f"its own inputs: rel err <= {max(read_errs):.3e}; fp32 {kfps:.2f} frames/s "
+          f"(lockstep-checked)")
     check_outputs(ka, kt, N_FRAMES, "fp32 kernel stream")
     check_outputs(pa, pt, N_FRAMES, "fp32 plain stream")
     assert fp32_launches == len(read_errs) == N_FRAMES - 1, \
         "the stream did not run the kernel once per segment call"
+    assert fp32_combine_launches == N_FRAMES - 1, "the fp32 stream did not merge its split reads"
     # Stream against stream.  Frame 0 reads no memory: identical.  Frame 1
     # reads a bank written from identical state: the reads differ by fp32
     # summation order (~1e-6); where a trimap argmax sits on a near-tie it
@@ -340,23 +379,26 @@ def main() -> int:
     print(f"fps_512p_joint_s4_bf16: {fps:.3f} frames/s ({N_FRAMES} frames, run_video, "
           f"wall clock) on {card}")
 
-    # top-level numbers: the stream's shape (512p count 5) in bf16; every
-    # timed shape and dtype under "shapes"
+    # top-level numbers: the stream's shape (512p count 5) in bf16, with
+    # the bf16 stream's launches; every timed shape and dtype under
+    # "shapes", the fp32 stream's launches beside
     keys = ("max_abs_err", "rel_err", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     main_label = TIMED[0][4]
     read = timing["bfloat16", main_label]
-    comb = timing["combine", main_label]
+    comb = timing["combine bfloat16", main_label]
     src = "otvm_tpu_torch/kernels/csrc/memory_attn.cu"
     print(json.dumps({"kernels": [
         {"name": "memory_read", "route": "cuda", "source": src,
          "replaces": "otvm_tpu/kernels/memory_attn.py:134", "launches": bf16_launches,
-         **{key: read[key] for key in keys},
-         "shapes": {f"{d} {label}": row for (d, label), row in timing.items() if d != "combine"}},
+         "launches_fp32_stream": fp32_launches, **{key: read[key] for key in keys},
+         "shapes": {f"{d} {label}": row for (d, label), row in timing.items()
+                    if not d.startswith("combine")}},
         {"name": "memory_combine", "route": "cuda", "source": src,
          "replaces": "otvm_tpu/kernels/memory_attn.py:124", "launches": combine_launches,
-         **{key: comb[key] for key in keys},
-         "shapes": {f"bfloat16 {main_label}": comb}}]}))
+         "launches_fp32_stream": fp32_combine_launches, **{key: comb[key] for key in keys},
+         "shapes": {f"{d[len('combine '):]} {label}": row for (d, label), row in timing.items()
+                    if d.startswith("combine")}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -9,16 +9,19 @@
 // is not zeroed, as in memory_read_xla: with at least one valid slot this is
 // the Pallas result; with none it is the uniform average (Pallas gives NaN).
 // Positions past T*HW score -inf.  As in the Pallas kernel, the
-// unnormalised p is rounded to the value dtype before the PV product, and
-// the output takes q's dtype.  KV tiles that lie wholly in masked slots are
-// skipped when at least one slot is valid (their p is exactly 0 then).
+// unnormalised p is rounded to the value dtype before the PV product (in
+// fp32: not rounded), and the output takes q's dtype.  KV tiles that lie
+// wholly in masked slots are skipped when at least one slot is valid
+// (their p is exactly 0 then).
 //
-// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): at 512p
-// steady state (HW = 1024, 5 valid slots of T = 6, Ck = 128, Cv = 512) the
-// read is 2 * 1024 * 5120 * (128 + 512) = 6.7 GFLOP, 6.8 us on the tensor
-// cores, against ~7.8 MB of bytes (2.3 us); at 1088x1920 (HW = 8160, 2
-// valid slots) 170 GFLOP, 0.17 ms.  It is bound by tensor-core operations,
-// so the bf16 kernel has to run both products on them:
+// What bounds it on an H100 (dense: 989 TFLOP/s bf16, 495 TF32, 67 fp32 on
+// the CUDA cores; 3.35 TB/s): at 512p steady state (HW = 1024, 5 valid
+// slots of T = 6, Ck = 128, Cv = 512) the read is 2 * 1024 * 5120 * (128 +
+// 512) = 6.7 GFLOP against ~7.8 MB of bytes in bf16 (2.3 us) or ~15.7 MB in
+// fp32 (4.7 us); at 1088x1920 (HW = 8160, 2 valid slots) 170 GFLOP.  The
+// tensor cores bound it: bf16 6.8 us and 0.17 ms; fp32 as 3xTF32 (three
+// TF32 products per product) 40.7 us and 1.03 ms (on the CUDA cores it
+// would be 0.100 and 2.54 ms).  So both kernels run both products on them:
 //
 //   * memory_read_tc (bf16): one block per 128 query rows x CVT value
 //     columns (CVT = 256, or 128 when Cv is not a multiple of 256) x one
@@ -43,10 +46,32 @@
 //     makes 16 blocks, so the wrapper splits the live K/V tiles across
 //     `splits` blocks, each writing (m, l, unnormalised acc) in fp32, and
 //     memory_combine merges them.  With splits = 1 the block writes out.
-//   * fp32 (the parity mode, not served) stays on the CUDA cores
-//     (memory_read_simple): every product an fp32 FMA from shared memory,
-//     S recomputed for each 128-column slice of Cv.  Its own redesign is
-//     later work.
+//   * memory_read_f32tc (fp32): the same grid, split and partials, on
+//     mma.sync m16n8k8 in 3xTF32.  Each fp32 operand x is split as it is
+//     loaded into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
+//     as cvt.rna does, and a b is a_hi b_lo + a_lo b_hi + a_hi b_hi, small
+//     terms first, summed in fp32: about 21 bits of each operand, fp32's
+//     accuracy in practice, where plain TF32 is ~1000x worse.  Each tile's
+//     P V starts from a fresh accumulator that the FPU adds to O: the
+//     tensor cores truncate as they accumulate, and over a whole bank that
+//     bias reaches 1e-4.  The warpgroups are memory_read_tc's (setmaxnreg
+//     24 / 240): two consumer warpgroups, eight warps of 16 query rows, and
+//     a producer whose one thread brings Q (64 KB) once and K/V tiles of 32
+//     positions (48 KB at CVT = 256) by TMA into a 3-stage ring, in boxes
+//     32 fp32 wide with the 128-byte swizzle.  mma.sync and not wgmma:
+//     wgmma takes a tf32 B only K-major from shared memory, and V is
+//     MN-major, so P V would need transposed hi and lo copies of every V
+//     tile; mma.sync takes both operands from registers, so V keeps its
+//     layout.  The price: mma.sync runs TF32 at about half wgmma's rate on
+//     the H100, so this kernel's floor is ~2x the 3xTF32 bound above.
+//     Every shared-memory read is a 16-byte load without bank conflicts:
+//     the key column of a k-step (in S) and the value column of an n-block
+//     (in P V) are renumbered, alike in both operands, so that a thread's
+//     values are contiguous; the S accumulator is P V's A operand as it
+//     stands, its two columns of a thread taken as k = t and t + 4 (V rows
+//     2t and 2t + 1 of each 8-position chunk).  K and V are split in
+//     registers by each warp (four integer or float instructions a value),
+//     which costs issue slots beside the mma.syncs but no shared memory.
 // Times on the card beside these bounds: PERF.md (chip_smoke.py phase 3).
 
 #include <cuda.h>
@@ -58,183 +83,6 @@
 namespace {
 
 constexpr int MAX_T = 256;   // bank slots
-
-// ---------------------------------------------------------------------------
-// fp32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-constexpr int S_BQ = 32;        // query rows per block (16 row pairs)
-constexpr int S_BK = 64;        // memory positions per KV tile
-constexpr int S_CVS = 128;      // value columns per block
-constexpr int S_THREADS = 256;  // 16 x 16: ty owns 2 rows, tx owns columns tx + 16 j
-
-// max / sum over the 16 lanes that share a row pair (one half-warp)
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
-
-template <int CK>
-constexpr size_t simple_smem_bytes() {
-    return sizeof(float) * (S_BQ * (CK + 1) + S_BK * (CK + 1) + S_BK * S_CVS + S_BQ * S_BK);
-}
-
-template <int CK>
-__global__ void __launch_bounds__(S_THREADS)
-memory_read_simple(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const uint8_t* __restrict__ slot_mask,
-                   float* __restrict__ out, int hw, int t, int cv, float scale) {
-    extern __shared__ float smem[];
-    float* Qs = smem;                    // [BQ][CK + 1]  (+1: no bank conflicts)
-    float* Ks = Qs + S_BQ * (CK + 1);    // [BK][CK + 1]
-    float* Vs = Ks + S_BK * (CK + 1);    // [BK][CVS]
-    float* Ps = Vs + S_BK * S_CVS;       // [BQ][BK]
-    __shared__ uint8_t mask_s[MAX_T];
-    __shared__ int any_valid_s;
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
-    const int q0 = blockIdx.x * S_BQ;
-    const int cv0 = blockIdx.y * S_CVS;
-    const int b = blockIdx.z;
-    const long kv_len = (long)t * hw;
-
-    const float* qb = q + (long)b * hw * CK;
-    const float* kb = k + (long)b * kv_len * CK;
-    const float* vb = v + (long)b * kv_len * cv;
-
-    if (tid == 0) any_valid_s = 0;
-    __syncthreads();
-    for (int i = tid; i < t; i += S_THREADS) {
-        const uint8_t m = slot_mask[(long)b * t + i];
-        mask_s[i] = m;
-        if (m) any_valid_s = 1;
-    }
-    for (int i = tid; i < S_BQ * CK; i += S_THREADS) {
-        const int r = i / CK, c = i % CK;
-        Qs[r * (CK + 1) + c] = (q0 + r < hw) ? qb[(long)(q0 + r) * CK + c] : 0.f;
-    }
-    __syncthreads();
-    const bool any_valid = any_valid_s != 0;
-
-    const int r0 = ty * 2;  // this thread's rows: r0, r0 + 1
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.f, 0.f};
-    float acc[2][8];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (long k0 = 0; k0 < kv_len; k0 += S_BK) {
-        const int n_k = (int)min((long)S_BK, kv_len - k0);
-        if (any_valid) {  // block-uniform: every thread takes the same branch
-            bool live = false;
-            for (long s = k0 / hw; s <= (k0 + n_k - 1) / hw; ++s) live |= mask_s[s] != 0;
-            if (!live) continue;
-        }
-        for (int i = tid; i < S_BK * CK; i += S_THREADS) {
-            const int r = i / CK, c = i % CK;
-            Ks[r * (CK + 1) + c] = (r < n_k) ? kb[(k0 + r) * CK + c] : 0.f;
-        }
-        for (int i = tid; i < S_BK * S_CVS; i += S_THREADS) {
-            const int r = i / S_CVS, c = i % S_CVS;
-            Vs[r * S_CVS + c] = (r < n_k) ? vb[(k0 + r) * cv + cv0 + c] : 0.f;
-        }
-        __syncthreads();
-
-        // S tile: rows r0, r0 + 1; columns tx + 16 j
-        float s[2][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[0][j] = s[1][j] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < CK; ++d) {
-            const float qa = Qs[r0 * (CK + 1) + d];
-            const float qc = Qs[(r0 + 1) * (CK + 1) + d];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float kk = Ks[(tx + 16 * j) * (CK + 1) + d];
-                s[0][j] = fmaf(qa, kk, s[0][j]);
-                s[1][j] = fmaf(qc, kk, s[1][j]);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c = tx + 16 * j;
-            const bool in_range = c < n_k;
-            const bool valid = in_range && mask_s[(k0 + c) / hw] != 0;
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                s[i][j] = !in_range ? -INFINITY : (valid ? s[i][j] * scale : -1e30f);
-        }
-
-        // online softmax, one row pair per half-warp
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-            mx = half_warp_max(mx);
-            const float m_new = fmaxf(m_run[i], mx);
-            const float alpha = expf(m_run[i] - m_new);
-            float psum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float p = expf(s[i][j] - m_new);
-                psum += p;
-                Ps[(r0 + i) * S_BK + tx + 16 * j] = p;
-            }
-            l_run[i] = l_run[i] * alpha + half_warp_sum(psum);
-            m_run[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
-        }
-        __syncthreads();
-
-        // acc += P V over this tile (out-of-range rows have p = 0 and V = 0)
-#pragma unroll 4
-        for (int kk = 0; kk < S_BK; ++kk) {
-            const float p0 = Ps[r0 * S_BK + kk];
-            const float p1 = Ps[(r0 + 1) * S_BK + kk];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const float vv = Vs[kk * S_CVS + tx + 16 * j];
-                acc[0][j] = fmaf(p0, vv, acc[0][j]);
-                acc[1][j] = fmaf(p1, vv, acc[1][j]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r = q0 + r0 + i;
-        if (r >= hw) continue;
-        float* ob = out + ((long)b * hw + r) * cv + cv0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) ob[tx + 16 * j] = acc[i][j] / l_run[i];
-    }
-}
-
-template <int CK>
-cudaError_t launch_simple(const void* q, const void* k, const void* v, const void* mask,
-                          void* out, int batch, int hw, int t, int cv, cudaStream_t stream) {
-    auto kernel = memory_read_simple<CK>;
-    const size_t smem = simple_smem_bytes<CK>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((hw + S_BQ - 1) / S_BQ, cv / S_CVS, batch);
-    kernel<<<grid, S_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(out), hw, t, cv,
-        1.0f / sqrtf((float)CK));
-    return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel (TMA ring, wgmma)
@@ -379,24 +227,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The K/V tiles a block reads, as ranges [x, y) of tile indices (tile i
-// covers positions [64 i, 64 i + 64)): with a valid slot, the tiles that
-// touch one; with none, all of them.  Built once per block by one thread.
+// covers positions [TILE i, TILE i + TILE)): with a valid slot, the tiles
+// that touch one; with none, all of them.  Built once per block by one
+// thread.
 struct TileRanges {
     int2 r[MAX_T + 1];   // + 1: TileCursor::next may read one past the last
     int n;               // ranges
     int live;            // tiles in all ranges
 };
 
+template <int TILE = BK>
 __device__ void build_ranges(TileRanges& tr, const uint8_t* mask_s, int hw, int t,
                              bool any_valid) {
     const int kv_len = t * hw;
     int n = 0;
     if (!any_valid) {
-        tr.r[n++] = make_int2(0, (kv_len + BK - 1) / BK);
+        tr.r[n++] = make_int2(0, (kv_len + TILE - 1) / TILE);
     } else {
         for (int s = 0; s < t; ++s) {
             if (!mask_s[s]) continue;
-            const int x = s * hw / BK, y = ((s + 1) * hw - 1) / BK + 1;
+            const int x = s * hw / TILE, y = ((s + 1) * hw - 1) / TILE + 1;
             if (n > 0 && x <= tr.r[n - 1].y) tr.r[n - 1].y = max(tr.r[n - 1].y, y);
             else tr.r[n++] = make_int2(x, y);
         }
@@ -711,11 +561,371 @@ memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 on the tensor cores (mma.sync), TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int F_BK = 32;                       // memory positions per K/V tile
+constexpr int F_STAGES = 3;                    // K/V ring depth
+constexpr int F_WARPS = CONSUMERS / 32;        // consumer warps, 16 query rows each
+// setmaxnreg moves registers within the block's own allocation (384 x 168
+// = 64512): 128 x 24 + 256 x 240 = 64512.  The producer thread needs fewer
+// than memory_read_tc's 40, and 240 leaves ptxas room for the consumers.
+constexpr int F_CONSUMER_REGS = 240;
+constexpr int F_PRODUCER_REGS = 24;
+
+// Every tile is a stack of TMA boxes 32 fp32 (128 bytes) wide, rows 128
+// bytes apart; the 128-byte swizzle puts 16-byte chunk c of row r at chunk
+// c ^ (r % 8).  Q: CK / 32 boxes of 128 rows; a stage: CK / 32 key boxes,
+// then CVT / 32 value boxes, of F_BK rows.
+template <int CK, int CVT>
+struct F32Layout {
+    static constexpr int Q_BOX = BQ * 128;
+    static constexpr int Q_BYTES = CK / 32 * Q_BOX;
+    static constexpr int KV_BOX = F_BK * 128;
+    static constexpr int K_BYTES = CK / 32 * KV_BOX;
+    static constexpr int STAGE_BYTES = K_BYTES + CVT / 32 * KV_BOX;
+    static constexpr int SMEM = Q_BYTES + F_STAGES * STAGE_BYTES + 1024;   // + alignment slack
+};
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a swizzled box
+__device__ __forceinline__ uint32_t swz128(int row, int chunk) {
+    return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void lds128(uint32_t addr, float* x) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3]) : "r"(addr));
+}
+
+// x = hi + lo to ~2^-22 |x|: hi = tf32(x), lo = tf32(x - hi), each rounded
+// to nearest, ties away from zero: cvt.rna.tf32.f32's result for finite x
+// (the read's inputs are), without its inf/NaN guard, which costs ptxas
+// two more instructions per conversion.  Adding half a TF32 ulp (0x1000)
+// and dropping the 13 low bits is the rounding; the tensor cores read only
+// the 19 high bits of a tf32 operand, so lo needs no mask.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8], tf32 operands, fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: the small terms first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           const uint32_t* b_hi, const uint32_t* b_lo) {
+    mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+    mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+    mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// Grid, split, outputs and warpgroups as memory_read_tc, in fp32.  Warp w
+// of the two consumer warpgroups owns query rows q0 + 16 w .. + 15 and
+// reads every tile of its split.  Lane (g, tq) = (lane / 4, lane % 4)
+// holds rows g and g + 8 of its warp's 16, in the m16n8k8 fragment
+// layouts.  The tensor cores add into an fp32 accumulator with truncation
+// (a bias toward zero of up to an ulp a step): summed over thousands of
+// steps into O, that costs 1e-4 of the output at 1088x1920.  So each tile's
+// P V goes to a fresh accumulator, 12 steps deep, added to O by the FPU.
+template <int CK, int CVT>
+__global__ void __launch_bounds__(THREADS, 1)
+memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ slot_mask,
+                  float* __restrict__ out, float* __restrict__ acc_part,
+                  float2* __restrict__ ml_part, int hw, int t, int cv, int splits,
+                  float scale_log2) {
+    using L = F32Layout<CK, CVT>;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ uint64_t full_bar[F_STAGES];
+    __shared__ uint64_t empty_bar[F_STAGES];
+    __shared__ uint64_t q_bar;
+    __shared__ uint8_t mask_s[MAX_T + 1];
+    __shared__ int any_valid_s;
+    __shared__ TileRanges ranges;
+
+    // the swizzle repeats every 1024 bytes: align the tiles to it
+    const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t stage0 = q_s + L::Q_BYTES;
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * BQ;
+    const int cv0 = blockIdx.y * CVT;
+    const int b = blockIdx.z / splits;
+    const int split = blockIdx.z % splits;
+    const int batch = gridDim.z / splits;
+    const int kv_len = t * hw;
+
+    if (tid == 0) {
+        any_valid_s = 0;
+        for (int i = 0; i < F_STAGES; ++i) {
+            mbar_init(smem_u32(&full_bar[i]), 1);
+            mbar_init(smem_u32(&empty_bar[i]), F_WARPS);
+        }
+        mbar_init(smem_u32(&q_bar), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    for (int i = tid; i < t; i += THREADS) {
+        const uint8_t m = slot_mask[(long)b * t + i];
+        mask_s[i] = m;
+        if (m) any_valid_s = 1;
+    }
+    __syncthreads();
+    if (tid == 0) build_ranges<F_BK>(ranges, mask_s, hw, t, any_valid_s != 0);
+    __syncthreads();
+    // this split's live tiles: [lo, lo + n_mine) (read after setmaxnreg,
+    // so that no value has to live across it)
+    auto my_tiles = [&](int& lo, int& n_mine) {
+        const int live = __shfl_sync(0xffffffffu, ranges.live, 0);
+        lo = (int)((long)split * live / splits);
+        n_mine = (int)((long)(split + 1) * live / splits) - lo;
+    };
+    int lo, n_mine;
+
+    if (__shfl_sync(0xffffffffu, tid / 128, 0) == CONSUMERS / 128) {
+        // ---- producer warpgroup: gives registers away; one thread issues every TMA load ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PRODUCER_REGS));
+        my_tiles(lo, n_mine);
+        if (tid == CONSUMERS && n_mine > 0) {
+            const uint32_t qb = smem_u32(&q_bar);
+            mbar_expect_tx(qb, L::Q_BYTES);
+            for (int cb = 0; cb < CK / 32; ++cb)
+                for (int h = 0; h < 2; ++h)
+                    tma_load_3d(q_s + cb * L::Q_BOX + h * 64 * 128, &q_map, qb, cb * 32,
+                                q0 + 64 * h, b);
+            TileCursor cur(ranges, lo);
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int j = 0; j < n_mine; ++j, cur.next()) {
+                mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1);
+                const uint32_t fb = smem_u32(&full_bar[stage]);
+                mbar_expect_tx(fb, L::STAGE_BYTES);
+                const uint32_t ks = stage0 + stage * L::STAGE_BYTES;
+                for (int cb = 0; cb < CK / 32; ++cb)
+                    tma_load_3d(ks + cb * L::KV_BOX, &k_map, fb, cb * 32, cur.tile * F_BK, b);
+                for (int c = 0; c < CVT / 32; ++c)
+                    tma_load_3d(ks + L::K_BYTES + c * L::KV_BOX, &v_map, fb, cv0 + 32 * c,
+                                cur.tile * F_BK, b);
+                if (++stage == F_STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+        return;
+    }
+
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CONSUMER_REGS));
+    my_tiles(lo, n_mine);
+    const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int r0 = warp * 16 + g;   // this thread's rows of the block's 128: r0, r0 + 8
+
+    // o[16 c + 4 j + 2 i + e]: row r0 + 8 i, value column 32 c + 8 tq + 4 e + j
+    // (n-block j of the 32 columns of box c, renumbered: its column g is 4 g + j)
+    float o[CVT / 2];
+#pragma unroll
+    for (int i = 0; i < CVT / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};   // log2 units
+    float l_run[2] = {0.f, 0.f};               // this thread's share of the row sums
+
+    if (n_mine > 0) {
+        mbar_wait(smem_u32(&q_bar), 0);
+        TileCursor cur(ranges, lo);
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int j = 0; j < n_mine; ++j, cur.next()) {
+            mbar_wait(smem_u32(&full_bar[stage]), phase);
+            const uint32_t ks = stage0 + stage * L::STAGE_BYTES;
+            const uint32_t vs = ks + L::K_BYTES;
+
+            // S = Q K^T.  s[4 n + 2 i + e]: row r0 + 8 i, position 8 n + 2 tq + e.
+            // k-step kk of box cb takes k = tq, tq + 4 as key columns
+            // 8 tq + 2 kk, + 1 (chunks 2 tq and 2 tq + 1 of a row hold all four steps).
+            float s[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) s[i] = 0.f;
+#pragma unroll
+            for (int cb = 0; cb < CK / 32; ++cb) {
+                float qv[2][8];
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e)
+                        lds128(q_s + cb * L::Q_BOX + swz128(r0 + 8 * i, 2 * tq + e), qv[i] + 4 * e);
+                uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    split_tf32(qv[0][2 * kk], a_hi[kk][0], a_lo[kk][0]);       // row g, k = tq
+                    split_tf32(qv[1][2 * kk], a_hi[kk][1], a_lo[kk][1]);       // row g + 8
+                    split_tf32(qv[0][2 * kk + 1], a_hi[kk][2], a_lo[kk][2]);   // row g, k = tq + 4
+                    split_tf32(qv[1][2 * kk + 1], a_hi[kk][3], a_lo[kk][3]);   // row g + 8
+                }
+                // key rows (positions) 8 n + g, two n-blocks at a time: two
+                // independent accumulators for the tensor cores to overlap
+#pragma unroll
+                for (int n2 = 0; n2 < 4; n2 += 2) {
+                    float kv[2][8];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e)
+                            lds128(ks + cb * L::KV_BOX + swz128(8 * (n2 + h) + g, 2 * tq + e),
+                                   kv[h] + 4 * e);
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            uint32_t b_hi[2], b_lo[2];
+                            split_tf32(kv[h][2 * kk], b_hi[0], b_lo[0]);
+                            split_tf32(kv[h][2 * kk + 1], b_hi[1], b_lo[1]);
+                            mma_3xtf32(s + 4 * (n2 + h), a_hi[kk], a_lo[kk], b_hi, b_lo);
+                        }
+                }
+            }
+
+            // mask, update m and l, p = 2^(S - m) into s
+            const int p0 = cur.tile * F_BK;
+            const int slot_a = p0 / hw;
+            const int bnd = (slot_a + 1) * hw - p0;   // first column of the next slot
+            const bool two_slots = (min(p0 + F_BK, kv_len) - 1) / hw <= slot_a + 1;
+            float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = 8 * n + 2 * tq + e;
+                    const bool in_range = p0 + col < kv_len;
+                    const int slot =
+                        col < bnd ? slot_a : (two_slots ? slot_a + 1 : (p0 + col) / hw);
+                    const bool valid = in_range && mask_s[slot] != 0;
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        float& x = s[4 * n + 2 * i + e];
+                        x = !in_range ? -INFINITY : (valid ? x * scale_log2 : -1e30f);
+                        mx[i] = fmaxf(mx[i], x);
+                    }
+                }
+            float alpha[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                alpha[i] = exp2f(m_run[i] - mx[i]);
+                m_run[i] = mx[i];
+                l_run[i] *= alpha[i];
+            }
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        float& x = s[4 * n + 2 * i + e];
+                        x = exp2f(x - m_run[i]);
+                        l_run[i] += x;
+                    }
+            if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+                for (int i = 0; i < CVT / 8; ++i) {
+                    o[4 * i + 0] *= alpha[0];
+                    o[4 * i + 1] *= alpha[0];
+                    o[4 * i + 2] *= alpha[1];
+                    o[4 * i + 3] *= alpha[1];
+                }
+            }
+
+            // O += P V.  The accumulator of S's n-block kc is the A operand
+            // of chunk kc as it stands, with k = tq for position 8 kc + 2 tq
+            // and k = tq + 4 for 8 kc + 2 tq + 1: V rows 2 tq and 2 tq + 1
+            // give b0 and b1; one 16-byte load gives four n-blocks' worth.
+            uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc) {
+                split_tf32(s[4 * kc + 0], p_hi[kc][0], p_lo[kc][0]);   // row g, k = tq
+                split_tf32(s[4 * kc + 2], p_hi[kc][1], p_lo[kc][1]);   // row g + 8, k = tq
+                split_tf32(s[4 * kc + 1], p_hi[kc][2], p_lo[kc][2]);   // row g, k = tq + 4
+                split_tf32(s[4 * kc + 3], p_hi[kc][3], p_lo[kc][3]);   // row g + 8, k = tq + 4
+            }
+#pragma unroll
+            for (int c = 0; c < CVT / 32; ++c) {
+                float pv[16];   // this tile's share of o[16 c ..]
+#pragma unroll
+                for (int i = 0; i < 16; ++i) pv[i] = 0.f;
+#pragma unroll
+                for (int kc = 0; kc < 4; ++kc) {
+                    float v0[4], v1[4];   // columns 32 c + 4 g .. + 3 of rows 2 tq, 2 tq + 1
+                    lds128(vs + c * L::KV_BOX + swz128(8 * kc + 2 * tq, g), v0);
+                    lds128(vs + c * L::KV_BOX + swz128(8 * kc + 2 * tq + 1, g), v1);
+#pragma unroll
+                    for (int jn = 0; jn < 4; ++jn) {
+                        uint32_t b_hi[2], b_lo[2];
+                        split_tf32(v0[jn], b_hi[0], b_lo[0]);
+                        split_tf32(v1[jn], b_hi[1], b_lo[1]);
+                        mma_3xtf32(pv + 4 * jn, p_hi[kc], p_lo[kc], b_hi, b_lo);
+                    }
+                }
+#pragma unroll
+                for (int i = 0; i < 16; ++i) o[16 * c + i] += pv[i];
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+            if (++stage == F_STAGES) {
+                stage = 0;
+                phase ^= 1;
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+        l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = q0 + r0 + 8 * i;
+        if (row >= hw) continue;
+        const bool whole = splits == 1;
+        const float inv = whole ? 1.f / l_run[i] : 1.f;
+        const long idx = ((long)split * batch + b) * hw + row;
+        float* ob = (whole ? out + ((long)b * hw + row) * cv : acc_part + idx * cv) + cv0 + 8 * tq;
+#pragma unroll
+        for (int c = 0; c < CVT / 32; ++c)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float* oc = o + 16 * c + 2 * i + e;
+                *reinterpret_cast<float4*>(ob + 32 * c + 4 * e) =
+                    make_float4(oc[0] * inv, oc[4] * inv, oc[8] * inv, oc[12] * inv);
+            }
+        if (!whole && blockIdx.y == 0 && tq == 0) ml_part[idx] = make_float2(m_run[i], l_run[i]);
+    }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+    uint2 packed;
+    packed.x = pack_bf16(x.x, x.y);
+    packed.y = pack_bf16(x.z, x.w);
+    *reinterpret_cast<uint2*>(p) = packed;
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+    *reinterpret_cast<float4*>(p) = x;
+}
+
 // out[r, :] = sum_s 2^(m_s - M) acc_s[r, :] / sum_s 2^(m_s - M) l_s, M = max_s m_s.
 // One block of 128 threads per row of B * HW; 4 columns a thread per pass.
+template <typename T>
 __global__ void __launch_bounds__(128)
 memory_combine(const float* __restrict__ acc_part, const float2* __restrict__ ml_part,
-               __nv_bfloat16* __restrict__ out, int rows, int cv, int splits) {
+               T* __restrict__ out, int rows, int cv, int splits) {
     const long row = blockIdx.x;
     float m_max = -INFINITY;
     for (int s = 0; s < splits; ++s) m_max = fmaxf(m_max, ml_part[s * (long)rows + row].x);
@@ -736,10 +946,8 @@ memory_combine(const float* __restrict__ acc_part, const float2* __restrict__ ml
             sum.z += w * a.z;
             sum.w += w * a.w;
         }
-        uint2 packed;
-        packed.x = pack_bf16(sum.x * inv, sum.y * inv);
-        packed.y = pack_bf16(sum.z * inv, sum.w * inv);
-        *reinterpret_cast<uint2*>(out + row * cv + c) = packed;
+        store4(out + row * cv + c,
+               make_float4(sum.x * inv, sum.y * inv, sum.z * inv, sum.w * inv));
     }
 }
 
@@ -762,20 +970,21 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A bf16 [batch, rows, cols] tensor read in boxes of [1, 64, box_cols]; rows
-// past `rows` read as zeros.
+// A [batch, rows, cols] tensor of `type` (bf16 unless given) read in boxes
+// of [1, box_rows, box_cols]; rows past `rows` read as zeros.
 bool encode_map(CUtensorMap* map, const void* ptr, int cols, long rows, int batch, int box_cols,
-                CUtensorMapSwizzle swizzle) {
+                CUtensorMapSwizzle swizzle,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, int box_rows = 64) {
     const EncodeTiled fn = encode_tiled();
     if (fn == nullptr) return false;
+    const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
     const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
-    const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)box_cols, 64, 1};
+    const cuuint64_t strides[2] = {(cuuint64_t)cols * size, (cuuint64_t)cols * rows * size};
+    const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
     const cuuint32_t elem[3] = {1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-           CUDA_SUCCESS;
+    return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int CK, int CVT>
@@ -802,20 +1011,63 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* m
     return cudaGetLastError();
 }
 
+template <int CK, int CVT>
+cudaError_t launch_f32tc(const void* q, const void* k, const void* v, const void* mask, void* out,
+                         void* acc_part, void* ml_part, int batch, int hw, int t, int cv,
+                         int splits, cudaStream_t stream) {
+    using L = F32Layout<CK, CVT>;
+    const CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_128B;
+    const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    CUtensorMap q_map, k_map, v_map;
+    if (!encode_map(&q_map, q, CK, hw, batch, 32, swz, f32, 64) ||
+        !encode_map(&k_map, k, CK, (long)t * hw, batch, 32, swz, f32, F_BK) ||
+        !encode_map(&v_map, v, cv, (long)t * hw, batch, 32, swz, f32, F_BK))
+        return cudaErrorInvalidValue;
+    auto kernel = memory_read_f32tc<CK, CVT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((hw + BQ - 1) / BQ, cv / CVT, batch * splits);
+    kernel<<<grid, THREADS, L::SMEM, stream>>>(
+        q_map, k_map, v_map, static_cast<const uint8_t*>(mask), static_cast<float*>(out),
+        static_cast<float*>(acc_part), static_cast<float2*>(ml_part), hw, t, cv, splits,
+        LOG2E / sqrtf((float)CK));
+    return cudaGetLastError();
+}
+
+bool read_args_ok(void* acc_part, void* ml_part, int batch, int hw, int t, int cv, int splits) {
+    return batch > 0 && hw > 0 && t > 0 && t <= MAX_T && cv > 0 && cv % 128 == 0 &&
+           splits > 0 && (long)batch * splits <= 65535 && (long)t * hw <= (1l << 31) - BK &&
+           (splits == 1 || (acc_part != nullptr && ml_part != nullptr));
+}
+
 }  // namespace
 
 // q [B, HW, Ck], k [B, T*HW, Ck], v [B, T*HW, Cv], mask [B, T] uint8, out
-// [B, HW, Cv]; all contiguous fp32 on one device.  Ck in {32, 128}, Cv a
-// multiple of 128, T <= 256.  Launches on `stream`, returns cudaGetLastError().
+// [B, HW, Cv]; all contiguous fp32 on one device, 16-byte aligned.  Ck in
+// {32, 128}, Cv a multiple of 128, T <= 256.  splits == 1: writes out.
+// splits > 1: writes acc_part [splits, B, HW, Cv] fp32 and ml_part
+// [splits, B, HW, 2] fp32 for otvm_memory_combine; out is unused.  Launches
+// on `stream`, returns cudaGetLastError().
 extern "C" int otvm_memory_read_f32(const void* q, const void* k, const void* v,
-                                    const void* mask, void* out, int batch, int hw, int t,
-                                    int ck, int cv, void* stream) {
-    if (batch <= 0 || hw <= 0 || t <= 0 || t > MAX_T || cv <= 0 || cv % S_CVS != 0)
+                                    const void* mask, void* out, void* acc_part, void* ml_part,
+                                    int batch, int hw, int t, int ck, int cv, int splits,
+                                    void* stream) {
+    if (!read_args_ok(acc_part, ml_part, batch, hw, t, cv, splits))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool wide = cv % 256 == 0;
     switch (ck) {
-        case 32: return (int)launch_simple<32>(q, k, v, mask, out, batch, hw, t, cv, s);
-        case 128: return (int)launch_simple<128>(q, k, v, mask, out, batch, hw, t, cv, s);
+        case 32:
+            return (int)(wide ? launch_f32tc<32, 256>(q, k, v, mask, out, acc_part, ml_part,
+                                                      batch, hw, t, cv, splits, s)
+                              : launch_f32tc<32, 128>(q, k, v, mask, out, acc_part, ml_part,
+                                                      batch, hw, t, cv, splits, s));
+        case 128:
+            return (int)(wide ? launch_f32tc<128, 256>(q, k, v, mask, out, acc_part, ml_part,
+                                                       batch, hw, t, cv, splits, s)
+                              : launch_f32tc<128, 128>(q, k, v, mask, out, acc_part, ml_part,
+                                                       batch, hw, t, cv, splits, s));
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -827,9 +1079,7 @@ extern "C" int otvm_memory_read_bf16(const void* q, const void* k, const void* v
                                      const void* mask, void* out, void* acc_part, void* ml_part,
                                      int batch, int hw, int t, int ck, int cv, int splits,
                                      void* stream) {
-    if (batch <= 0 || hw <= 0 || t <= 0 || t > MAX_T || cv <= 0 || cv % 128 != 0 ||
-        splits <= 0 || (long)batch * splits > 65535 || (long)t * hw > (1l << 31) - BK ||
-        (splits > 1 && (acc_part == nullptr || ml_part == nullptr)))
+    if (!read_args_ok(acc_part, ml_part, batch, hw, t, cv, splits))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = cv % 256 == 0;
@@ -848,13 +1098,19 @@ extern "C" int otvm_memory_read_bf16(const void* q, const void* k, const void* v
     }
 }
 
-// Merges otvm_memory_read_bf16's partials: acc_part [splits, rows, cv],
-// ml_part [splits, rows, 2] fp32 -> out [rows, cv] bf16 (rows = B * HW).
+// Merges the reads' partials: acc_part [splits, rows, cv], ml_part
+// [splits, rows, 2] fp32 -> out [rows, cv], fp32 if fp32_out else bf16
+// (rows = B * HW).
 extern "C" int otvm_memory_combine(const void* acc_part, const void* ml_part, void* out,
-                                   int rows, int cv, int splits, void* stream) {
+                                   int rows, int cv, int splits, int fp32_out, void* stream) {
     if (rows <= 0 || cv <= 0 || cv % 4 != 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-    memory_combine<<<rows, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(acc_part), static_cast<const float2*>(ml_part),
-        static_cast<__nv_bfloat16*>(out), rows, cv, splits);
+    const float* acc = static_cast<const float*>(acc_part);
+    const float2* ml = static_cast<const float2*>(ml_part);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (fp32_out)
+        memory_combine<<<rows, 128, 0, s>>>(acc, ml, static_cast<float*>(out), rows, cv, splits);
+    else
+        memory_combine<<<rows, 128, 0, s>>>(acc, ml, static_cast<__nv_bfloat16*>(out), rows, cv,
+                                            splits);
     return (int)cudaGetLastError();
 }

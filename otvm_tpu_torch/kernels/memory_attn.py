@@ -3,19 +3,21 @@ versions, and the wrappers that pick between them.
 
 The kernels (csrc/memory_attn.cu) replace
 otvm_tpu/kernels/memory_attn.py::memory_read_pallas; the source note gives
-the bound on an H100 and the design.  bf16 runs on the tensor cores (wgmma,
-K/V tiles brought in by TMA); where the grid alone would leave the card
+the bound on an H100 and the design.  Both dtypes run on the tensor cores,
+with K/V tiles brought in by TMA: bf16 on wgmma, fp32 on mma.sync in
+3xTF32 (each operand split into two TF32 halves, three products per
+product: fp32's accuracy).  Where the grid alone would leave the card
 idle, the live K/V tiles are split across blocks, and `memory_combine`
-merges the blocks' partial results.  fp32 (the parity mode) runs on the
-CUDA cores.  The library is compiled with nvcc for sm_90a, with a plain C
-entry, on first use, into build/ at the root of the checkout, and loaded
-with ctypes.
+merges the blocks' partial results.  The library is compiled with nvcc for
+sm_90a, with a plain C entry, on first use, into build/ at the root of the
+checkout, and loaded with ctypes.
 
 `memory_read` takes the plain version for tensors on the CPU and the
 kernels for CUDA tensors; on CUDA it launches them or raises, and never
 falls back.  `launches` counts memory-read kernel launches and
 `combine_launches` combine kernel launches (and nothing else), so a run can
-show that its main path went through them.
+show that its main path went through them.  `memory_read_tf32_plain`
+emulates the fp32 kernel's tensor-core arithmetic on any device.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _KEY_DIMS = (32, 128)   # the real model and the scale=4 test model
 _CV_SLICE = 128
 _MAX_SLOTS = 256
-BQ = 128                # tensor-core kernel: query rows per block
-BK = 64                 # positions per K/V tile
+BQ = 128                # query rows per block
+BK = 64                 # positions per K/V tile of the bf16 kernel (the split rule's unit)
 _MAX_SPLITS = 16
 
 launches = 0            # memory-read kernel launches since the last reset
@@ -85,9 +87,9 @@ def build() -> ctypes.CDLL:
                 os.unlink(tmp)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.otvm_memory_read_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.otvm_memory_read_f32.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.otvm_memory_read_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-    lib.otvm_memory_combine.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.otvm_memory_combine.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     for fn in (lib.otvm_memory_read_f32, lib.otvm_memory_read_bf16, lib.otvm_memory_combine):
         fn.restype = i32
     _lib, library_path = lib, so
@@ -95,7 +97,7 @@ def build() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
-# launch geometry of the bf16 kernel
+# launch geometry of the kernels (both dtypes)
 # ---------------------------------------------------------------------------
 
 def value_tile(cv: int) -> int:
@@ -105,10 +107,10 @@ def value_tile(cv: int) -> int:
 
 def launch_geometry(b: int, hw: int, t: int, cv: int, sms: int = 132,
                     _splits: Optional[int] = None) -> Tuple[int, int, int]:
-    """(query tiles, value tiles, splits) of one bf16 launch.  The split
-    count fills the card's `sms` with one block each, and gives each split
-    at least 4 of the bank's K/V tiles; `_splits` overrides it (a hook for
-    the card tests and the split benchmark)."""
+    """(query tiles, value tiles, splits) of one launch, bf16 or fp32.  The
+    split count fills the card's `sms` with one block each, and gives each
+    split at least 4 of the bank's 64-position K/V tiles; `_splits`
+    overrides it (a hook for the card tests and the split benchmark)."""
     q_tiles = -(-hw // BQ)
     cv_tiles = cv // value_tile(cv)
     splits = _splits
@@ -139,6 +141,46 @@ def memory_read_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqk,bkv->bqv", p.to(v.dtype).float(), v.float())
     return out.to(q_k.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as the kernel's cvt.rna.tf32.f32: a bit trick on the fp32 pattern
+    (finite x)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def memory_read_tf32_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
+                           slot_mask: Optional[torch.Tensor] = None,
+                           passes: int = 3) -> torch.Tensor:
+    """memory_read_plain in fp32 with both products done as the fp32
+    kernel's tensor cores do them: each operand x split into hi =
+    tf32_round(x) and lo = tf32_round(x - hi), a b summed in fp32 as a_hi
+    b_lo + a_lo b_hi + a_hi b_hi (passes=3, 3xTF32), or as a_hi b_hi alone
+    (passes=1, plain TF32).  A product of two TF32 values is exact in fp32,
+    so fp32 matmuls of the halves emulate the tensor cores."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, not {passes}")
+
+    def product(eq, a, b):
+        a_hi, b_hi = tf32_round(a), tf32_round(b)
+        out = torch.einsum(eq, a_hi, b_hi)
+        if passes == 3:
+            small = (torch.einsum(eq, a_hi, tf32_round(b - b_hi))
+                     + torch.einsum(eq, tf32_round(a - a_hi), b_hi))
+            out = small + out
+        return out
+
+    b, t, hw, ck = m_k.shape
+    cv = m_v.shape[-1]
+    scores = product("bqc,bkc->bqk", q_k.float(), m_k.reshape(b, t * hw, ck).float())
+    scores = scores / math.sqrt(ck)
+    if slot_mask is not None:
+        mask = slot_mask.bool().repeat_interleave(hw, dim=-1)
+        scores = scores.masked_fill(~mask[:, None, :], _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return product("bqk,bkv->bqv", p, m_v.reshape(b, t * hw, cv).float())
 
 
 def memory_read_partials_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
@@ -215,37 +257,42 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _combine(lib: ctypes.CDLL, acc: torch.Tensor, ml: torch.Tensor, stream: int) -> torch.Tensor:
+def _combine(lib: ctypes.CDLL, acc: torch.Tensor, ml: torch.Tensor, stream: int,
+             dtype: torch.dtype) -> torch.Tensor:
     global combine_launches
     splits, b, hw, cv = acc.shape
-    out = torch.empty((b, hw, cv), dtype=torch.bfloat16, device=acc.device)
-    _check(lib.otvm_memory_combine(acc.data_ptr(), ml.data_ptr(), out.data_ptr(),
-                                   b * hw, cv, splits, stream), "memory_combine")
+    out = torch.empty((b, hw, cv), dtype=dtype, device=acc.device)
+    _check(lib.otvm_memory_combine(acc.data_ptr(), ml.data_ptr(), out.data_ptr(), b * hw, cv,
+                                   splits, int(dtype == torch.float32), stream),
+           "memory_combine")
     combine_launches += 1
     return out
 
 
 @_on_own_card
-def memory_combine_cuda(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+def memory_combine_cuda(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The combine kernel: acc [S, B, HW, Cv], ml [S, B, HW, 2] fp32 on
-    the card -> [B, HW, Cv] bf16.  Raises on what it does not take."""
+    the card -> [B, HW, Cv] in `dtype` (bf16 or fp32); its plain version is
+    combine_plain(acc, ml, dtype).  Raises on what it does not take."""
     if not (acc.is_cuda and ml.is_cuda):
         raise ValueError("memory_combine_cuda needs CUDA tensors")
     if acc.dtype != torch.float32 or ml.dtype != torch.float32:
         raise TypeError("memory_combine_cuda: partials must be float32")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"memory_combine_cuda: output dtype {dtype} not supported")
     if acc.dim() != 4 or tuple(ml.shape) != (*acc.shape[:3], 2):
         raise ValueError(f"memory_combine_cuda: acc {tuple(acc.shape)}, ml {tuple(ml.shape)}")
     if not (acc.is_contiguous() and ml.is_contiguous()) or acc.shape[-1] % 4:
         raise ValueError("memory_combine_cuda: want contiguous partials, Cv a multiple of 4")
-    return _combine(build(), acc, ml, _stream(acc))
+    return _combine(build(), acc, ml, _stream(acc), dtype)
 
 
 @_on_own_card
 def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                      slot_mask: Optional[torch.Tensor] = None,
                      _splits: Optional[int] = None) -> torch.Tensor:
-    """The kernel (bf16: tensor cores, fp32: CUDA cores), on the inputs'
-    card.  The bf16 split count comes from the shape (`launch_geometry`);
+    """The kernel (bf16: wgmma, fp32: 3xTF32 mma.sync), on the inputs'
+    card.  The split count comes from the shape (`launch_geometry`);
     `_splits` overrides it, for the card tests and the split benchmark.
     Raises on what it does not take; never falls back."""
     global launches
@@ -268,11 +315,8 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                          f"(want a multiple of {_CV_SLICE}), T={t} (max {_MAX_SLOTS})")
     if not (q_k.is_contiguous() and m_k.is_contiguous() and m_v.is_contiguous()):
         raise ValueError("memory_read_cuda: inputs must be contiguous")
-    bf16 = q_k.dtype == torch.bfloat16
-    if bf16 and any(x.data_ptr() % 16 for x in (q_k, m_k, m_v)):
-        raise ValueError("memory_read_cuda: bf16 inputs must be 16-byte aligned (TMA)")
-    if not bf16 and _splits not in (None, 1):
-        raise ValueError("memory_read_cuda: the fp32 kernel does not split")
+    if any(x.data_ptr() % 16 for x in (q_k, m_k, m_v)):
+        raise ValueError("memory_read_cuda: inputs must be 16-byte aligned (TMA)")
     if slot_mask is None:
         mask = torch.ones((b, t), dtype=torch.uint8, device=q_k.device)
     elif tuple(slot_mask.shape) != (b, t):
@@ -283,29 +327,21 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     else:
         mask = slot_mask.to(device=q_k.device, dtype=torch.uint8).contiguous()
     lib = build()
+    read = lib.otvm_memory_read_bf16 if q_k.dtype == torch.bfloat16 else lib.otvm_memory_read_f32
     stream = _stream(q_k)
-    if not bf16:
-        out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
-        _check(lib.otvm_memory_read_f32(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
-                                        mask.data_ptr(), out.data_ptr(), b, hw, t, ck, cv,
-                                        stream), "memory_read")
-        launches += 1
-        return out
     _, _, n_split = launch_geometry(b, hw, t, cv, _sm_count(q_k.device.index), _splits)
     if n_split == 1:
         out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
-        _check(lib.otvm_memory_read_bf16(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
-                                         mask.data_ptr(), out.data_ptr(), None, None,
-                                         b, hw, t, ck, cv, 1, stream), "memory_read")
+        _check(read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(), mask.data_ptr(),
+                    out.data_ptr(), None, None, b, hw, t, ck, cv, 1, stream), "memory_read")
         launches += 1
         return out
     acc = torch.empty((n_split, b, hw, cv), dtype=torch.float32, device=q_k.device)
     ml = torch.empty((n_split, b, hw, 2), dtype=torch.float32, device=q_k.device)
-    _check(lib.otvm_memory_read_bf16(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(),
-                                     mask.data_ptr(), None, acc.data_ptr(), ml.data_ptr(),
-                                     b, hw, t, ck, cv, n_split, stream), "memory_read")
+    _check(read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(), mask.data_ptr(), None,
+                acc.data_ptr(), ml.data_ptr(), b, hw, t, ck, cv, n_split, stream), "memory_read")
     launches += 1
-    return _combine(lib, acc, ml, stream)
+    return _combine(lib, acc, ml, stream, q_k.dtype)
 
 
 def memory_read(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Times the bf16 memory read on one CUDA card, by the number of K/V splits.
+"""Times the memory read on one CUDA card, by the number of K/V splits.
 
-    python -m otvm_tpu_torch.tools.bench_memory_read [--reps 20]
+    python -m otvm_tpu_torch.tools.bench_memory_read [--dtype bfloat16|float32] [--reps 20]
 
 For the stream's 512p read (HW=1024, T=6, 1 and 5 valid slots) and the
 1088x1920 read (HW=8160, T=3, 2 valid slots): the device time of the kernel
@@ -38,18 +38,20 @@ def host_us(fn, reps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
+    dt = getattr(torch, args.dtype)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
+    print(f"card: {card}; {args.dtype}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for hw, t, count, label in SHAPES:
-        q = torch.randn(1, hw, 128, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(1, t, hw, 128, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(1, t, hw, 512, generator=gen, device="cuda").bfloat16()
+        q = torch.randn(1, hw, 128, generator=gen, device="cuda").to(dt)
+        k = torch.randn(1, t, hw, 128, generator=gen, device="cuda").to(dt)
+        v = torch.randn(1, t, hw, 512, generator=gen, device="cuda").to(dt)
         mask = torch.arange(t, device="cuda")[None] < count
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         chosen = ma.launch_geometry(1, hw, t, 512, sms=sms)[2]

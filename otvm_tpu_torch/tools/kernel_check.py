@@ -12,13 +12,15 @@ import torch
 # Tolerances of rel_err, each between the errors of sound and control
 # results (tools/tolerance_bands.py; PERF.md).  Read, kernel vs plain: bf16
 # rounds p and the output at different points in the two (sound ~3e-3);
-# fp32 differs by summation order (sound ~1e-6).  `control` inputs give
-# 2.5e-2..4.8e-2 (bf16) and 2e-4..3.8e-4 (fp32).
+# fp32 in 3xTF32 on the tensor cores differs by ~21-bit operands and
+# summation order (sound ~1e-6; plain TF32 would give ~4e-4).  `control`
+# inputs give 2.5e-2..4.8e-2 (bf16) and 2e-4..3.8e-4 (fp32).
 READ_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# Combine, kernel vs plain: the same fp32 partials merged and rounded once
-# to bf16 (sound ~2e-5); partials rounded to bf16 before the merge give
-# ~2.5e-3.
-COMBINE_TOL = 1e-3
+# Combine, kernel vs plain: the same fp32 partials merged, then rounded
+# once to bf16 (sound ~2e-5) or kept in fp32 (sound ~1e-7); partials
+# rounded before the merge (`combine_control`) give ~2.5e-3 (through bf16)
+# and ~2e-4 (through fp16).
+COMBINE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # The control's narrower type: fp8 e4m3 for bf16, fp16 (TF32's mantissa)
 # for fp32.
 _NARROWER = {torch.bfloat16: torch.float8_e4m3fn, torch.float32: torch.float16}
@@ -34,6 +36,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def control(x: torch.Tensor) -> torch.Tensor:
     """x rounded through the next narrower type, back in x's dtype."""
     return x.to(_NARROWER[x.dtype]).to(x.dtype)
+
+
+def combine_control(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 partials rounded before a merge into `dtype`: through bf16 for
+    a bf16 output, through fp16 for an fp32 one."""
+    return acc.to(torch.bfloat16 if dtype == torch.bfloat16 else torch.float16).float()
 
 
 def device_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:

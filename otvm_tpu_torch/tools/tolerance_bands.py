@@ -6,17 +6,21 @@ separate, from the plain split arithmetic on the CPU.
 For each shape and dtype: the sound error, `memory_read_partials_plain` (1
 and 8 splits) merged by `combine_plain` against `memory_read_plain` (the
 split kernel's arithmetic: p rounded against a running max); the control's,
-the plain read on inputs rounded through a narrower type (`control`).  For
-the combine: the fp32 merge against an fp64 one (sound) and partials
-rounded to bf16 before the merge (control).  1088x1920 takes 256 query rows
-of its 8160, to keep the score matrix small.
+the plain read on inputs rounded through a narrower type (`control`).  In
+fp32 also the fp32 kernel's tensor-core arithmetic, emulated
+(`memory_read_tf32_plain`): 3xTF32 (sound) and plain TF32 (what a kernel
+that dropped the small terms would give).  For the combine, per output
+dtype: the fp32 merge against an fp64 one (sound) and partials rounded
+before the merge (`combine_control`: through bf16, or fp16 for an fp32
+output).  1088x1920 takes 256 query rows of its 8160, to keep the score
+matrix small.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import memory_attn as ma
-from .kernel_check import control, rel_err
+from .kernel_check import combine_control, control, rel_err
 
 # b, hw, t, slot mask, query rows, label
 CASES = [(1, 1024, 6, [1, 1, 1, 1, 1, 0], 1024, "512p count 5"),
@@ -39,13 +43,20 @@ def main():
             sound = [rel_err(ma.combine_plain(*ma.memory_read_partials_plain(qq, kk, vv, m, s), dt),
                              want) for s in (1, 8)]
             ctl = rel_err(ma.memory_read_plain(control(qq), control(kk), control(vv), m), want)
-            print(f"{label:22s} {str(dt)[6:]:9s} read: sound {sound[0]:.3e} (1 split) "
-                  f"{sound[1]:.3e} (8 splits), control {ctl:.3e}")
-        acc, ml = ma.memory_read_partials_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), m, 8)
-        want = ma.combine_plain(acc, ml, torch.bfloat16)
-        sound = rel_err(ma.combine_plain(acc.double(), ml.double(), torch.bfloat16), want)
-        ctl = rel_err(ma.combine_plain(acc.bfloat16().float(), ml, torch.bfloat16), want)
-        print(f"{label:22s} combine: sound {sound:.3e}, control {ctl:.3e}")
+            line = (f"{label:22s} {str(dt)[6:]:9s} read: sound {sound[0]:.3e} (1 split) "
+                    f"{sound[1]:.3e} (8 splits), control {ctl:.3e}")
+            if dt == torch.float32:
+                tf32 = [rel_err(ma.memory_read_tf32_plain(qq, kk, vv, m, passes), want)
+                        for passes in (3, 1)]
+                line += f"; 3xTF32 {tf32[0]:.3e}, 1xTF32 {tf32[1]:.3e}"
+            print(line)
+        for dt in (torch.bfloat16, torch.float32):
+            acc, ml = ma.memory_read_partials_plain(q.to(dt), k.to(dt), v.to(dt), m, 8)
+            want = ma.combine_plain(acc, ml, dt)
+            sound = rel_err(ma.combine_plain(acc.double(), ml.double(), dt), want)
+            ctl = rel_err(ma.combine_plain(combine_control(acc, dt), ml, dt), want)
+            print(f"{label:22s} {str(dt)[6:]:9s} combine: sound {sound:.3e}, "
+                  f"control {ctl:.3e}")
 
 
 if __name__ == "__main__":

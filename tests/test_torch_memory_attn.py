@@ -1,9 +1,10 @@
 """Port memory read (otvm_tpu_torch.kernels.memory_attn).
 
 On the CPU: the plain version against the JAX package's XLA path and its
-Pallas kernel (interpret mode), fp32, at the JAX tests' shapes; the bf16
-kernel's split arithmetic (plain partials merged by the plain combine)
-against the plain read; and the launch geometry's coverage.  On a card:
+Pallas kernel (interpret mode), fp32, at the JAX tests' shapes; the
+kernels' split arithmetic (plain partials merged by the plain combine)
+against the plain read; the launch geometry's coverage; and the fp32
+kernel's 3xTF32 arithmetic, emulated, against the plain read.  On a card:
 the CUDA kernels against their plain versions, by the norm-relative error
 that a lower-precision control fails (skipped without a card).  JAX is
 imported by the tests that use it, so the card's tests run where JAX is
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from otvm_tpu_torch.kernels import memory_attn as ma
-from otvm_tpu_torch.tools.kernel_check import COMBINE_TOL, READ_TOL, control, rel_err
+from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, READ_TOL, combine_control, control,
+                                               rel_err)
 
 # the JAX tests' shapes (tests/test_memory_attn_pallas.py): (hw, t, mask)
 CASES = [(64, 2, None), (96, 3, [1, 1, 0]), (128, 5, [1, 0, 0, 0, 0]), (70, 3, None)]
@@ -128,6 +130,7 @@ def test_split_partials_combine_to_plain(dtype, b, hw, t, rows, splits):
             > READ_TOL[dt]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hw,t,ck,cv,rows", [
     (1, 1024, 6, 128, 512, [1, 1, 1, 1, 1, 0]),       # 512p, count 5
     (1, 1024, 6, 128, 512, [1, 0, 0, 0, 0, 0]),       # 512p, count 1
@@ -136,12 +139,13 @@ def test_split_partials_combine_to_plain(dtype, b, hw, t, rows, splits):
     (1, 48, 3, 128, 384, [0, 0, 0]),                  # HW < 64, empty, Cv % 256 != 0
     (2, 64, 4, 32, 128, [1, 1, 0, 1]),                # the scale-4 model's widths
 ])
-def test_launch_geometry_covers_each_output_and_position_once(b, hw, t, ck, cv, rows):
-    """The bf16 launch's blocks cover every (query row, value column) once,
-    in one wave on an H100 unless the split count is forced; the plain
-    split partials (the combine's input) read every live position once.
-    The kernel's own K/V coverage is held by the card tests (1 and 4
-    splits)."""
+def test_launch_geometry_covers_each_output_and_position_once(dtype, b, hw, t, ck, cv, rows):
+    """A launch's blocks (bf16 or fp32: one geometry) cover every (query
+    row, value column) once, in one wave on an H100 unless the split count
+    is forced; the plain split partials (the combine's input) in the
+    dtype read every live position once.  The kernels' own K/V coverage is
+    held by the card tests (1 and 4 splits)."""
+    dt = getattr(torch, dtype)
     for splits in (None, 1, 3):
         q_tiles, cv_tiles, n_split = ma.launch_geometry(b, hw, t, cv, _splits=splits)
         cvt = ma.value_tile(cv)
@@ -151,19 +155,55 @@ def test_launch_geometry_covers_each_output_and_position_once(b, hw, t, ck, cv, 
             assert n_split == 1 or n_split * 4 * ma.BK <= t * hw   # >= 4 K/V tiles a split
         else:
             assert n_split == splits
-        # one query row, scores 0; V = (1, position % 64, position // 64):
-        # the merged partials' sums (integers below 2^24, exact in fp32)
-        # give the count and two sums of the positions read
+        # one query row, scores 0; V = (1, position in base 64): digits
+        # below 64 are exact in bf16, and the merged partials' sums
+        # (integers below 2^24, exact in fp32) give the count and three
+        # sums of the positions read
         pos = torch.arange(t * hw).reshape(1, t, hw, 1).expand(b, t, hw, 1)
-        v = torch.cat([torch.ones_like(pos), pos % 64, pos // 64], dim=-1).float()
+        v = torch.cat([torch.ones_like(pos), pos % 64, pos // 64 % 64, pos // 4096], dim=-1)
         acc, ml = ma.memory_read_partials_plain(
-            torch.zeros(b, 1, ck), torch.zeros(b, t, hw, ck), v,
+            torch.zeros(b, 1, ck, dtype=dt), torch.zeros(b, t, hw, ck, dtype=dt), v.to(dt),
             torch.tensor(rows, dtype=torch.bool).expand(b, t), n_split)
         valid = np.repeat(np.asarray(rows, bool), hw) if any(rows) else np.ones(t * hw, bool)
         live = np.flatnonzero(valid)
-        want = [len(live), (live % 64).sum(), (live // 64).sum()]
+        want = [len(live), (live % 64).sum(), (live // 64 % 64).sum(), (live // 4096).sum()]
         np.testing.assert_array_equal(acc.sum(dim=0)[:, 0].numpy(), np.tile([want], (b, 1)))
         np.testing.assert_array_equal(ml[..., 1].sum(dim=0).numpy(), np.full((b, 1), len(live)))
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest at 10 mantissa bits, ties away from zero: the
+    fp32 kernel's split (cvt.rna.tf32.f32 on finite values)."""
+    u = 2.0 ** -10                                    # TF32's ulp at 1
+    x = torch.tensor([1 + u / 2, 1 + u / 4, -(1 + u / 2), 1 + 1.5 * u, 1 + 0.75 * u, 3.0,
+                      1 + u / 2 - 2.0 ** -23, 0.0])
+    want = [1 + u, 1.0, -(1 + u), 1 + 2 * u, 1 + u, 3.0, 1.0, 0.0]
+    assert ma.tf32_round(x).tolist() == want
+    r = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(np.float32))
+    bits = ma.tf32_round(r).view(torch.int32)
+    assert ((bits & 0x1FFF) == 0).all()
+    assert ((ma.tf32_round(r) - r).abs() <= r.abs() * 2.0 ** -11).all()
+
+
+# (b, hw, t, per-row masks): 512p count 5, HW=70 with per-row masks, count 0
+TF32_CASES = [(1, 1024, 6, [[1, 1, 1, 1, 1, 0]]),
+              (2, 70, 3, [[1, 0, 1], [0, 1, 1]]),
+              (1, 1024, 6, [[0, 0, 0, 0, 0, 0]])]
+
+
+@pytest.mark.parametrize("b,hw,t,rows", TF32_CASES)
+def test_3xtf32_read_is_within_fp32_tolerance_and_1xtf32_is_not(b, hw, t, rows):
+    """The fp32 kernel's arithmetic, emulated: both products with operands
+    split into TF32 halves (3xTF32) stay within READ_TOL[fp32] of the plain
+    read; plain TF32 (hi * hi alone) does not, so the card's check tells a
+    kernel that dropped the small terms from a sound one."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(b, hw, t, seed=10))
+    m = torch.tensor(rows, dtype=torch.bool)
+    want = ma.memory_read_plain(q, k, v, m)
+    got3 = ma.memory_read_tf32_plain(q, k, v, m, passes=3)
+    got1 = ma.memory_read_tf32_plain(q, k, v, m, passes=1)
+    assert got3.dtype == torch.float32 and torch.isfinite(got3).all()
+    assert rel_err(got3, want) <= READ_TOL[torch.float32] < rel_err(got1, want)
 
 
 def _cuda_ready():
@@ -173,8 +213,9 @@ def _cuda_ready():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,splits", [   # the fp32 kernel does not split
-    ("float32", None), ("bfloat16", None), ("bfloat16", 1), ("bfloat16", 4)])
+@pytest.mark.parametrize("dtype,splits", [
+    ("float32", None), ("float32", 1), ("float32", 4),
+    ("bfloat16", None), ("bfloat16", 1), ("bfloat16", 4)])
 @pytest.mark.parametrize("b,hw,t,rows,ck,cv", [
     (1, 1024, 6, [1, 1, 1, 1, 1, 0], 128, 512), (1, 1024, 6, [1, 0, 0, 0, 0, 0], 128, 512),
     (2, 70, 3, [1, 0, 1], 128, 512), (1, 64, 3, [0, 0, 0], 128, 512),
@@ -205,22 +246,24 @@ def test_kernel_matches_plain_on_cuda(request, dtype, splits, b, hw, t, rows, ck
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hw,t,rows,splits", SPLIT_CASES)
-def test_combine_matches_plain_on_cuda(request, b, hw, t, rows, splits):
+def test_combine_matches_plain_on_cuda(request, dtype, b, hw, t, rows, splits):
     _cuda_ready()
-    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _inputs(b, hw, t, seed=8))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in _inputs(b, hw, t, seed=8))
     acc, ml = ma.memory_read_partials_plain(q, k, v, torch.tensor(rows, device="cuda"), splits)
     before = ma.combine_launches
-    got = ma.memory_combine_cuda(acc, ml)
+    got = ma.memory_combine_cuda(acc, ml, dt)
     torch.cuda.synchronize()
-    assert ma.combine_launches == before + 1
-    # both merge the same fp32 partials and round once to bf16; partials
-    # rounded to bf16 before the merge fail the check
-    want = ma.combine_plain(acc, ml, torch.bfloat16)
+    assert ma.combine_launches == before + 1 and got.dtype == dt
+    # both merge the same fp32 partials (and round once to bf16); partials
+    # rounded before the merge (through bf16, or fp16 for fp32) fail the check
+    want = ma.combine_plain(acc, ml, dt)
     rel, rel_ctl = rel_err(got, want), rel_err(
-        ma.combine_plain(acc.bfloat16().float(), ml, torch.bfloat16), want)
+        ma.combine_plain(combine_control(acc, dt), ml, dt), want)
     request.node.user_properties += [("rel_err", rel), ("control_rel_err", rel_ctl)]
-    assert rel <= COMBINE_TOL < rel_ctl
+    assert rel <= COMBINE_TOL[dt] < rel_ctl
 
 
 @pytest.mark.cuda
