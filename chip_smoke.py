@@ -31,7 +31,22 @@ Phases, in order; any failure exits non-zero:
      the note in main);
   5. the same stream in bf16 (the serving mode): a lockstep-checked
      warm-up, then timed: frames/sec, finite outputs, and frame 0 within a
-     loose bound of the fp32 stream.
+     loose bound of the fp32 stream;
+  6. training at full width.  First the read's autograd Function at the
+     training shapes (B 4, HW 400 of a 320x320 crop, T 1 and 2, no mask,
+     fp32 and bf16): its output and its three input gradients against
+     autograd through the plain read (a lower-precision control must fail),
+     memory_read_cuda refusing inputs that require grad, and the times of
+     the kernel, the plain read, SDPA and the plain backward.  Then the
+     stage-4 train step (make_train_step) at config.py's crop: 320x320,
+     B 4, S 3, random weights from a seed, seeded encode_wire batches, fp32:
+     8 steps with every read's forward and backward checked in lockstep, 2
+     read launches a step and the combines launch_geometry gives, a finite
+     loss, the parameters unchanged through RAdam's 5 held-back steps and
+     changed after; then timed steps (CUDA events), the peak memory and the
+     read's share of a profiled step.  Then bf16 steps (bf16 kernel, fp32
+     masters) and stage-1 trimap steps (make_trimap_s1_train_step), each
+     launching the kernel with finite losses.
 The line before the last is a JSON object with the kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -57,6 +72,12 @@ PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 FP32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
 TIMED = [(1, 1024, 6, 5, "512p count 5"), (1, 8160, 3, 2, "1088x1920 count 2")]   # b, hw, t, count
+# the stage-4 train step at config.py's defaults: batch, frames a clip, crop
+TRAIN_B, TRAIN_S, TRAIN_HW = 4, 3, 320
+TRAIN_STEPS = 8         # RAdam holds back steps 1-5 (N_sma < 5) and updates from step 6
+TRAIN_TIMED = 4
+BF16_STEPS = 3
+TRIMAP_STEPS = 3
 
 
 def card_line() -> str:
@@ -101,6 +122,17 @@ def read_cost(dt, b, hw, count, ck=128, cv=512, t=None):
     t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
     cuda_cores = 1e3 * max(flops / FP32_CUDA_CORES, t_bytes) if name == "float32" else None
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", cuda_cores
+
+
+def fmt_row(row) -> str:
+    return ", ".join(f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
+                     for key, val in row.items())
+
+
+def print_faster(dname, label, row):
+    faster = row["ms"] < min(row["plain_ms"], row["library_ms"])
+    print(f"  {'bf16' if dname == 'bfloat16' else 'fp32'} kernel faster than plain and SDPA "
+          f"at {label}: {faster}")
 
 
 def check(got, want, tol, what, ctl=None):
@@ -175,12 +207,8 @@ def kernel_phase(torch, ma):
                 max_abs_err=errs[dname, label][1])
             if cuda_cores_ms is not None:
                 row["bound_cuda_cores_ms"] = cuda_cores_ms
-            print(f"  time {dname:8s} {label}: " + ", ".join(
-                f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
-                for key, val in row.items()))
-            faster = row["ms"] < min(row["plain_ms"], row["library_ms"])
-            print(f"  {'bf16' if dname == 'bfloat16' else 'fp32'} kernel faster than plain "
-                  f"and SDPA at {label}: {faster}")
+            print(f"  time {dname:8s} {label}: " + fmt_row(row))
+            print_faster(dname, label, row)
 
     # the combine kernel, on the split partials of the stream's 512p read,
     # merged into each dtype
@@ -205,9 +233,7 @@ def kernel_phase(torch, ma):
             plain_ms=device_ms(lambda: ma.combine_plain(acc, ml, dt), flush=flush),
             library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
             rel_err=rel, max_abs_err=err, splits=splits)
-        print(f"  time combine {dname} {label} ({splits} splits): " + ", ".join(
-            f"{key} {val:.4g}" if isinstance(val, float) else f"{key} {val}"
-            for key, val in row.items()))
+        print(f"  time combine {dname} {label} ({splits} splits): " + fmt_row(row))
     return timing
 
 
@@ -235,6 +261,207 @@ def lockstep_check(torch, ma, dname):
         yield errs
     finally:
         ma.memory_read_cuda = launch
+
+
+@contextlib.contextmanager
+def lockstep_grad_check(torch, ma, dname):
+    """While active, every backward of the read (the autograd Function's
+    memory_read_vjp_plain) is also computed by autograd through the plain
+    read on the same inputs and held to GRAD_TOL; yields the list of the
+    largest of the three gradients' norm-relative errors per backward."""
+    from otvm_tpu_torch.tools.kernel_check import GRAD_TOL, plain_read_grads, rel_err
+
+    vjp, errs = ma.memory_read_vjp_plain, []
+    tol = GRAD_TOL[getattr(torch, dname)]
+
+    def checked(q, k, v, mask, g):
+        grads = vjp(q, k, v, mask, g)
+        errs.append(max(rel_err(a, w) for a, w in zip(grads, plain_read_grads(q, k, v, mask, g))))
+        assert errs[-1] <= tol, f"read backward != autograd through the plain read, backward " \
+            f"{len(errs) - 1}: rel err {errs[-1]:.3e} > {tol:g}"
+        return grads
+
+    ma.memory_read_vjp_plain = checked
+    try:
+        yield errs
+    finally:
+        ma.memory_read_vjp_plain = vjp
+
+
+def read_grad_phase(torch, ma, flush):
+    """Phase 6, first part: the read's autograd Function at the training
+    shapes, against autograd through the plain read; times."""
+    from otvm_tpu_torch.tools.kernel_check import (GRAD_TOL, READ_TOL, control, device_ms,
+                                                   plain_read_grads)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, hw = TRAIN_B, (TRAIN_HW // 16) ** 2
+    timing = {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for t in range(1, TRAIN_S):
+            label = f"train T={t}"
+            q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
+            k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
+            v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
+            g = torch.randn(b, hw, 512, generator=gen, device="cuda").to(dt)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = ma.memory_read(*leaves)
+            assert out.grad_fn is not None, "memory_read on inputs that require grad: no grad_fn"
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            ctl_q, ctl_k, ctl_v = control(q), control(k), control(v)
+            rel, err = check(out.detach(), ma.memory_read_plain(q, k, v), READ_TOL[dt],
+                             f"Function forward {dname} {label}",
+                             ma.memory_read_plain(ctl_q, ctl_k, ctl_v))
+            grad_rel = [check(got, want, GRAD_TOL[dt], f"Function d{name} {dname} {label}", ctl)[0]
+                        for got, want, ctl, name in zip(
+                            grads, plain_read_grads(q, k, v, None, g),
+                            plain_read_grads(ctl_q, ctl_k, ctl_v, None, g), ("q", "k", "v"))]
+            refused = False
+            try:
+                ma.memory_read_cuda(*leaves)
+            except RuntimeError:
+                refused = True
+            assert refused, "memory_read_cuda returned a result without a gradient"
+
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, None], k.reshape(b, 1, t * hw, 128), v.reshape(b, 1, t * hw, 512))
+            check(sdpa()[:, 0], ma.memory_read_plain(q, k, v), READ_TOL[dt],
+                  f"SDPA yardstick {dname} {label}")
+            bound_ms, bound_by, _ = read_cost(dt, b, hw, t, t=t)
+            row = timing[dname, label] = dict(
+                ms=device_ms(lambda: ma.memory_read(q, k, v), flush=flush),
+                plain_ms=device_ms(lambda: ma.memory_read_plain(q, k, v), flush=flush),
+                library_ms=device_ms(sdpa, flush=flush),
+                bound_ms=bound_ms, bound_by=bound_by, rel_err=rel, max_abs_err=err,
+                grad_rel_err=max(grad_rel),
+                backward_plain_ms=device_ms(lambda: ma.memory_read_vjp_plain(q, k, v, None, g),
+                                            flush=flush))
+            print(f"  time {dname:8s} {label}: " + fmt_row(row))
+            print_faster(dname, label, row)
+    return timing
+
+
+def train_phase(torch, ma, card):
+    """Phase 6, second part: full-width training through the trainer's
+    entry points."""
+    from otvm_tpu_torch import config
+    from otvm_tpu_torch.tools.profile_train import profile_step, seeded_batches, timed_step
+    from otvm_tpu_torch.train import trainer as T
+
+    cfg = config.get_cfg_defaults()
+    cfg.train.stage = 4
+    assert (cfg.train.batch_size, cfg.train.frame_num, tuple(cfg.train.train_input_size)) == \
+        (TRAIN_B, TRAIN_S, (TRAIN_HW, TRAIN_HW)), "config.py's stage-4 crop changed"
+    batches = seeded_batches(cfg, TRAIN_STEPS + TRAIN_TIMED + 1, seed=1)
+    state = T.init_train_state(cfg, seed=0)
+    step = T.make_train_step(cfg)
+    params = state.optimizer.param_groups[0]["params"]
+    start = [p.detach().clone() for p in params]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hw = (TRAIN_HW // 16) ** 2
+    reads_per_step = TRAIN_S - 1
+    # a clip's reads see banks of 1 .. S-1 slots; the split ones are merged
+    combines_per_step = sum(ma.launch_geometry(TRAIN_B, hw, t, 512, sms)[2] > 1
+                            for t in range(1, TRAIN_S))
+    out = dict(params=sum(p.numel() for p in params), reads_per_step=reads_per_step,
+               combines_per_step=combines_per_step)
+
+    torch.cuda.synchronize()
+    ma.launches = ma.combine_launches = 0
+    with lockstep_check(torch, ma, "float32") as fwd_errs, \
+            lockstep_grad_check(torch, ma, "float32") as bwd_errs:
+        for i in range(TRAIN_STEPS):
+            state, metrics = step(state, batches[i])
+            loss = metrics["loss"].item()
+            moved = any(not torch.equal(p, p0) for p, p0 in zip(params, start))
+            print(f"  fp32 step {i + 1}: loss {loss:.6f} (" + ", ".join(
+                f"{k} {v.item():.5f}" for k, v in metrics.items() if k != "loss") +
+                f"), parameters moved: {moved}")
+            assert np.isfinite(loss), f"fp32 step {i + 1}: loss {loss}"
+            assert moved == (i >= 5), f"fp32 step {i + 1}: RAdam should " \
+                f"{'update' if i >= 5 else 'hold back'} (parameters moved: {moved})"
+    out.update(launches=ma.launches, combine_launches=ma.combine_launches,
+               fwd_err=max(fwd_errs), bwd_err=max(bwd_errs))
+    print(f"  launches in {TRAIN_STEPS} fp32 steps: memory_read {ma.launches}, memory_combine "
+          f"{ma.combine_launches} (want {reads_per_step} and {combines_per_step} a step); every "
+          f"read vs plain on its own inputs: forward rel err <= {max(fwd_errs):.3e}, backward "
+          f"<= {max(bwd_errs):.3e}")
+    assert ma.launches == len(fwd_errs) == len(bwd_errs) == reads_per_step * TRAIN_STEPS, \
+        "the fp32 train steps did not run the kernel and its backward once per read"
+    assert ma.combine_launches == combines_per_step * TRAIN_STEPS, \
+        "the fp32 train steps did not merge their split reads"
+
+    torch.cuda.reset_peak_memory_stats()
+    ev_ms, wall_ms = [], []
+    for i in range(TRAIN_TIMED):
+        state, metrics, e, w = timed_step(step, state, batches[TRAIN_STEPS + i])
+        assert np.isfinite(metrics["loss"].item())
+        ev_ms.append(e)
+        wall_ms.append(w)
+    out.update(step_ms=float(np.median(ev_ms)), step_wall_ms=float(np.median(wall_ms)),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    state, trace = profile_step(step, state, batches[-1])
+    busy_ms, read_ms, bwd_ms = trace["device_busy_ms"], trace["read_ms"], trace["read_backward_ms"]
+    out.update(profiled_device_ms=busy_ms, profiled_read_ms=read_ms, profiled_read_bwd_ms=bwd_ms)
+    print(f"  fp32 stage-4 step, {TRAIN_HW}x{TRAIN_HW}, B {TRAIN_B}, S {TRAIN_S}: "
+          f"{out['step_ms']:.1f} ms (CUDA events, median of {TRAIN_TIMED}: "
+          f"{', '.join(f'{x:.1f}' for x in ev_ms)}), wall {out['step_wall_ms']:.1f} ms, "
+          f"peak memory {out['peak_gb']:.2f} GB, on {card}")
+    share = lambda ms: f"{ms:.3f} ms ({ms / busy_ms:.3%})" if ms and busy_ms else "not measured"
+    print(f"  profiled step: device {busy_ms:.1f} ms, read kernels {share(read_ms)}, read "
+          f"backward {share(bwd_ms)}")
+
+    # bf16: the same state; bf16 copies of the weights feed the networks
+    cfg.train.bf16 = True
+    step16 = T.make_train_step(cfg)
+    with lockstep_check(torch, ma, "bfloat16") as f16, \
+            lockstep_grad_check(torch, ma, "bfloat16") as b16:          # warm-up, checked
+        state, metrics = step16(state, batches[0])
+    assert np.isfinite(metrics["loss"].item())
+    torch.cuda.synchronize()
+    ma.launches = ma.combine_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ev16, losses16 = [], []
+    for i in range(BF16_STEPS):
+        state, metrics, e, _ = timed_step(step16, state, batches[1 + i])
+        ev16.append(e)
+        losses16.append(metrics["loss"].item())
+    out.update(bf16_launches=ma.launches, bf16_combine_launches=ma.combine_launches,
+               bf16_step_ms=float(np.median(ev16)),
+               bf16_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  bf16 stage-4 steps: losses {', '.join(f'{x:.5f}' for x in losses16)}; "
+          f"{out['bf16_step_ms']:.1f} ms a step (median of {BF16_STEPS}), peak memory "
+          f"{out['bf16_peak_gb']:.2f} GB; launches memory_read {ma.launches}, memory_combine "
+          f"{ma.combine_launches}; warm-up step vs plain: forward <= {max(f16):.3e}, backward "
+          f"<= {max(b16):.3e}")
+    assert all(np.isfinite(losses16)), "bf16 train step: non-finite loss"
+    assert ma.launches == reads_per_step * BF16_STEPS, "the bf16 steps did not run the kernel"
+    assert ma.combine_launches == combines_per_step * BF16_STEPS
+    del state, step, step16, start
+    torch.cuda.empty_cache()
+
+    # stage-1 trimap training: the STM alone, frames composited on the card
+    cfg1 = config.get_cfg_defaults()
+    state1 = T.init_train_state(cfg1, seed=2)
+    step1 = T.make_trimap_s1_train_step(cfg1)
+    ma.launches = ma.combine_launches = 0
+    losses1, ms1 = [], []
+    for i in range(TRIMAP_STEPS):
+        state1, metrics, e, _ = timed_step(step1, state1, batches[i])
+        assert metrics["pred_lab"].shape == (TRAIN_B, TRAIN_S, TRAIN_HW, TRAIN_HW)
+        losses1.append(metrics["loss"].item())
+        ms1.append(e)
+    out.update(trimap_launches=ma.launches, trimap_combine_launches=ma.combine_launches,
+               trimap_step_ms=float(np.median(ms1)))
+    print(f"  trimap-s1 steps: losses {', '.join(f'{x:.5f}' for x in losses1)}; "
+          f"{out['trimap_step_ms']:.1f} ms a step; launches memory_read {ma.launches}, "
+          f"memory_combine {ma.combine_launches}")
+    assert all(np.isfinite(losses1)), "trimap-s1 train step: non-finite loss"
+    assert ma.launches == reads_per_step * TRIMAP_STEPS, "the trimap steps did not run the kernel"
+    assert ma.combine_launches == combines_per_step * TRIMAP_STEPS
+    return out
 
 
 def make_video(n, seed=0):
@@ -378,10 +605,19 @@ def main() -> int:
     assert drift[0] <= 0.3 and agree0 >= 0.9, "bf16 frame 0 drifted from fp32"
     print(f"fps_512p_joint_s4_bf16: {fps:.3f} frames/s ({N_FRAMES} frames, run_video, "
           f"wall clock) on {card}")
+    del ev, ev_plain, ev16
+    torch.cuda.empty_cache()
+
+    print("phase 6: training at full width")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    timing.update(read_grad_phase(torch, ma, flush))
+    del flush
+    train = train_phase(torch, ma, card)
+    print(f"train_stage4_320 on {card}: {json.dumps(train)}")
 
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the bf16 stream's launches; every timed shape and dtype under
-    # "shapes", the fp32 stream's launches beside
+    # "shapes", the other paths' launches beside
     keys = ("max_abs_err", "rel_err", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     main_label = TIMED[0][4]
@@ -391,12 +627,20 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "memory_read", "route": "cuda", "source": src,
          "replaces": "otvm_tpu/kernels/memory_attn.py:134", "launches": bf16_launches,
-         "launches_fp32_stream": fp32_launches, **{key: read[key] for key in keys},
+         "launches_fp32_stream": fp32_launches,
+         "launches_train": {f"fp32 stage 4, {TRAIN_STEPS} steps": train["launches"],
+                            f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_launches"],
+                            f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
+         **{key: read[key] for key in keys},
          "shapes": {f"{d} {label}": row for (d, label), row in timing.items()
                     if not d.startswith("combine")}},
         {"name": "memory_combine", "route": "cuda", "source": src,
          "replaces": "otvm_tpu/kernels/memory_attn.py:124", "launches": combine_launches,
-         "launches_fp32_stream": fp32_combine_launches, **{key: comb[key] for key in keys},
+         "launches_fp32_stream": fp32_combine_launches,
+         "launches_train": {f"fp32 stage 4, {TRAIN_STEPS} steps": train["combine_launches"],
+                            f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_combine_launches"],
+                            f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_combine_launches"]},
+         **{key: comb[key] for key in keys},
          "shapes": {f"{d[len('combine '):]} {label}": row for (d, label), row in timing.items()
                     if d.startswith("combine")}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)

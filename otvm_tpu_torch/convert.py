@@ -157,7 +157,7 @@ def _apply_from_jax(variables: Mapping, table: Table) -> Dict[str, torch.Tensor]
         w = np.asarray(leaves[key], dtype=np.float32)
         if kind == "conv":
             w = np.transpose(w, (3, 2, 0, 1))       # HWIO -> OIHW
-        sd[tk] = torch.from_numpy(np.ascontiguousarray(w))
+        sd[tk] = torch.from_numpy(np.array(w, order="C"))   # a copy: no aliasing
     unused = sorted("/".join(k) for k in set(leaves) - used)
     if unused:
         raise KeyError(f"JAX leaves with no port key ({len(unused)}): {unused[:8]}")
@@ -180,7 +180,7 @@ def _apply_to_jax(state_dict: Mapping[str, torch.Tensor], table: Table) -> Dict[
         node = out.setdefault(coll, {})
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(w)
+        node[path[-1]] = np.array(w, order="C")          # a copy: no aliasing
     return out
 
 
@@ -211,6 +211,80 @@ def to_jax(stm_state: Mapping[str, torch.Tensor], fba_state: Mapping[str, torch.
     norm = "frozen_bn" if any(k.endswith("running_mean") for k in stm_state) else "gn"
     return (_apply_to_jax(stm_state, stm_table(16 if refinement else -1, scale, norm)),
             _apply_to_jax(fba_state, fba_table(refinement, scale)))
+
+
+# ---------------------------------------------------------------------------
+# per-parameter training state: gradients, RAdam moments
+# ---------------------------------------------------------------------------
+
+def _param_tables(stage: int, scale: int) -> Tuple[Table, Table]:
+    """The tables' trainable entries: the JAX 'params' collection.  A
+    trunk norm's parameters have the same names under either norm."""
+    keep = lambda t: {k: v for k, v in t.items() if v[0] == "params"}
+    refinement = stage > 2
+    return (keep(stm_table(16 if refinement else -1, scale)),
+            keep(fba_table(refinement, scale)))
+
+
+def params_to_jax(stm_tensors: Mapping[str, torch.Tensor],
+                  fba_tensors: Mapping[str, torch.Tensor], stage: int = 4, scale: int = 1
+                  ) -> Dict[str, dict]:
+    """Per-parameter tensors of the port (gradients, optimizer moments, or
+    the parameters themselves), keyed by parameter name, -> the JAX
+    package's params tree {'stm': ..., 'fba': ...}, with the weights'
+    per-leaf layout transform.  Strict: every parameter, nothing else."""
+    stm_t, fba_t = _param_tables(stage, scale)
+    return {"stm": _apply_to_jax(stm_tensors, stm_t).get("params", {}),
+            "fba": _apply_to_jax(fba_tensors, fba_t).get("params", {})}
+
+
+def params_from_jax(tree: Mapping[str, Mapping], stage: int = 4, scale: int = 1
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """params_to_jax's inverse: a JAX params tree {'stm': ..., 'fba': ...}
+    (parameters, gradients or moments) -> (STM, FBA) tensors by name."""
+    stm_t, fba_t = _param_tables(stage, scale)
+    return (_apply_from_jax({"params": tree["stm"]}, stm_t),
+            _apply_from_jax({"params": tree["fba"]}, fba_t))
+
+
+def _named_state(optimizer, module: torch.nn.Module, key: str) -> Dict[str, torch.Tensor]:
+    state = {}
+    for name, p in module.named_parameters():
+        if key not in optimizer.state.get(p, {}):
+            raise KeyError(f"the optimizer holds no {key} for {name}")
+        state[name] = optimizer.state[p][key]
+    return state
+
+
+def radam_state_to_jax(optimizer, stm: torch.nn.Module, fba: torch.nn.Module,
+                       stage: int = 4, scale: int = 1) -> Tuple[int, dict, dict]:
+    """The port's RAdam state over both networks (the optimizer of stages 1
+    and 4 and of trimap training, which holds every parameter, after its
+    first step) -> (step, exp_avg, exp_avg_sq) with the moments as JAX
+    params trees: the fields of otvm_tpu's RAdamState.  Strict: every
+    parameter needs its moments."""
+    moments = [params_to_jax(_named_state(optimizer, stm, key), _named_state(optimizer, fba, key),
+                             stage, scale) for key in ("exp_avg", "exp_avg_sq")]
+    return optimizer.param_groups[0]["step"], moments[0], moments[1]
+
+
+def radam_state_from_jax(optimizer, stm: torch.nn.Module, fba: torch.nn.Module, step: int,
+                         exp_avg: Mapping, exp_avg_sq: Mapping, stage: int = 4,
+                         scale: int = 1) -> None:
+    """Loads the fields of otvm_tpu's RAdamState into the port's RAdam,
+    whose parameters are both networks' (strict both ways)."""
+    owned = {id(p) for p in optimizer.param_groups[0]["params"]}
+    if len(owned) != sum(1 for net in (stm, fba) for _ in net.parameters()):
+        raise KeyError("the optimizer's parameters are not both networks' parameters")
+    m_stm, m_fba = params_from_jax(exp_avg, stage, scale)
+    v_stm, v_fba = params_from_jax(exp_avg_sq, stage, scale)
+    for module, m, v in ((stm, m_stm, v_stm), (fba, m_fba, v_fba)):
+        for name, p in module.named_parameters():
+            if id(p) not in owned:
+                raise KeyError(f"{name} is not a parameter of the optimizer")
+            optimizer.state[p] = {"exp_avg": m[name].to(p.device),
+                                  "exp_avg_sq": v[name].to(p.device)}
+    optimizer.param_groups[0]["step"] = int(step)
 
 
 # buffers of the released joint checkpoints that are regenerated in code

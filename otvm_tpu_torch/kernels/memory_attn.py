@@ -14,10 +14,14 @@ checkout, and loaded with ctypes.
 
 `memory_read` takes the plain version for tensors on the CPU and the
 kernels for CUDA tensors; on CUDA it launches them or raises, and never
-falls back.  `launches` counts memory-read kernel launches and
-`combine_launches` combine kernel launches (and nothing else), so a run can
-show that its main path went through them.  `memory_read_tf32_plain`
-emulates the fp32 kernel's tensor-core arithmetic on any device.
+falls back.  Where an input requires grad (training), it goes through
+`MemoryRead`, an autograd Function: the same forward, and as backward
+`memory_read_vjp_plain`, the einsum VJP of the JAX package's custom VJP
+(`_flash_bwd`; the JAX package has no backward kernel either).  `launches`
+counts memory-read kernel launches and `combine_launches` combine kernel
+launches (and nothing else), so a run can show that its main path went
+through them.  `memory_read_tf32_plain` emulates the fp32 kernel's
+tensor-core arithmetic on any device.
 """
 from __future__ import annotations
 
@@ -64,27 +68,32 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source and flags) and load the kernel library."""
+    """Compile (once per source and flags) and load the kernel library.
+    nvcc's output is kept beside the library, so `build_log` has ptxas's
+    report whether this call compiled or found the library built."""
     global _lib, build_log, library_path
     if _lib is not None:
         return _lib
     src = _SRC.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = _BUILD_DIR / f"memory_attn_{tag}.so"
-    if not so.exists():
+    log = so.with_suffix(".log")
+    if not (so.exists() and log.exists()):
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
         try:
             proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
                                   capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
+            out = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+            log.write_text(out)
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    build_log = log.read_text()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.otvm_memory_read_f32.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
@@ -141,6 +150,34 @@ def memory_read_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqk,bkv->bqv", p.to(v.dtype).float(), v.float())
     return out.to(q_k.dtype)
+
+
+def memory_read_vjp_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
+                          slot_mask: Optional[torch.Tensor], g: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The read's VJP, line for line otvm_tpu/kernels/memory_attn.py::
+    _flash_bwd: S recomputed in fp32, the masked softmax, then dv, dp, ds,
+    dq and dk in fp32, each cast back to its input's dtype.  g [B, HW, Cv]
+    is the output's gradient -> (dq_k, dm_k, dm_v); the mask has none."""
+    b, t, hw, ck = m_k.shape
+    cv = m_v.shape[-1]
+    k = m_k.reshape(b, t * hw, ck).float()
+    v = m_v.reshape(b, t * hw, cv).float()
+    q = q_k.float()
+    scale = 1.0 / math.sqrt(ck)
+    s = torch.einsum("bqc,bkc->bqk", q, k) * scale
+    if slot_mask is not None:
+        mask = slot_mask.bool().repeat_interleave(hw, dim=-1)       # [B, T*HW]
+        s = s.masked_fill(~mask[:, None, :], _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    g32 = g.float()
+    dv = torch.einsum("bqk,bqv->bkv", p, g32)
+    dp = torch.einsum("bqv,bkv->bqk", g32, v)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkc->bqc", ds, k) * scale
+    dk = torch.einsum("bqk,bqc->bkc", ds, q) * scale
+    return (dq.to(q_k.dtype), dk.reshape(m_k.shape).to(m_k.dtype),
+            dv.reshape(m_v.shape).to(m_v.dtype))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -294,10 +331,16 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     """The kernel (bf16: wgmma, fp32: 3xTF32 mma.sync), on the inputs'
     card.  The split count comes from the shape (`launch_geometry`);
     `_splits` overrides it, for the card tests and the split benchmark.
-    Raises on what it does not take; never falls back."""
+    Its output has no gradient: with grad enabled, inputs that require grad
+    raise (`memory_read` takes them through `MemoryRead`).  Raises on what
+    it does not take; never falls back."""
     global launches
     if not (q_k.is_cuda and m_k.is_cuda and m_v.is_cuda):
         raise ValueError("memory_read_cuda needs CUDA tensors")
+    if torch.is_grad_enabled() and (q_k.requires_grad or m_k.requires_grad
+                                    or m_v.requires_grad):
+        raise RuntimeError("memory_read_cuda gives no gradient: call memory_read, whose "
+                           "autograd Function carries it, on inputs that require grad")
     if q_k.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"memory_read_cuda: dtype {q_k.dtype} not supported")
     if not (m_k.dtype == m_v.dtype == q_k.dtype):
@@ -344,14 +387,42 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     return _combine(lib, acc, ml, stream, q_k.dtype)
 
 
+class MemoryRead(torch.autograd.Function):
+    """The read with a gradient (otvm_tpu's `_memory_read_flash` custom
+    VJP): forward the kernel for CUDA tensors and the plain version on the
+    CPU, backward `memory_read_vjp_plain`.  The backward recomputes S from
+    the saved inputs, as `_flash_bwd` does, and launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q_k, m_k, m_v, slot_mask):
+        ctx.save_for_backward(q_k, m_k, m_v, slot_mask)
+        if q_k.is_cuda:
+            return memory_read_cuda(q_k, m_k, m_v, slot_mask)
+        return memory_read_plain(q_k, m_k, m_v, slot_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q_k, m_k, m_v, slot_mask = ctx.saved_tensors
+        grads = memory_read_vjp_plain(q_k, m_k, m_v, slot_mask, g)
+        return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)), None)
+
+
 def memory_read(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                 slot_mask: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors.
+    Inputs that require grad (grad enabled) go through `MemoryRead`; all
+    others take the direct call, which costs the host less per frame.
     impl='plain' asks for the plain version on any device (for comparisons
-    with the kernel); it is never the default on CUDA."""
+    with the kernel; autograd differentiates it); it is never the default
+    on CUDA."""
     if impl not in (None, "plain"):
         raise ValueError(f"unknown memory_read impl {impl!r}")
-    if impl == "plain" or not q_k.is_cuda:
+    if impl == "plain":
+        return memory_read_plain(q_k, m_k, m_v, slot_mask)
+    if torch.is_grad_enabled() and (q_k.requires_grad or m_k.requires_grad
+                                    or m_v.requires_grad):
+        return MemoryRead.apply(q_k, m_k, m_v, slot_mask)
+    if not q_k.is_cuda:
         return memory_read_plain(q_k, m_k, m_v, slot_mask)
     return memory_read_cuda(q_k, m_k, m_v, slot_mask)

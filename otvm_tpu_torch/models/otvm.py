@@ -1,35 +1,31 @@
-"""Joint OTVM streaming inference, counterpart of otvm_tpu/models/otvm.py.
+"""Joint OTVM model, counterpart of otvm_tpu/models/otvm.py.
 
 `eval_frame_step` is one frame of joint stage-3/4 inference (alpha
 EvalModel.forward, models/alpha/model.py:391-512): segment with the memory
 bank -> softmax -> trimap features (argmax, JFA EDT, clicks) -> FBA with
 refinement -> memorize -> bank update.  Flags are Python bools and the bank
 count a host int, so a frame is enqueued on the device without waiting for
-it.  Arrays are NHWC, as in the JAX package.
+it.  `joint_train_forward` (alpha FullModel.forward, stages 1-4) and
+`trimap_train_forward` (the stage-1 trimap FullModel) are the training
+forwards with their losses.  Arrays are NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import functools
+import itertools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..nn.edt import trimap_clicks
 from ..nn.layers import init_flax_style
+from ..train import losses as L
+from ..train.losses import argmax_small
 from .fba import FBA
 from .memory import MemoryBank, init_bank, update_bank
 from .stm import KEY_DIM, STM, VAL_DIM, normalize_image
-
-
-def argmax_small(x: torch.Tensor) -> torch.Tensor:
-    """argmax over the last axis, first max wins (otvm_tpu/train/losses.py)."""
-    best = x[..., 0]
-    idx = torch.zeros(best.shape, dtype=torch.int64, device=x.device)
-    for k in range(1, x.shape[-1]):
-        take = x[..., k] > best
-        best = torch.where(take, x[..., k], best)
-        idx = torch.where(take, torch.full_like(idx, k), idx)
-    return idx
 
 
 def make_trimap_features(tri3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -120,3 +116,173 @@ def make_eval_bank(batch: int, height: int, width: int, max_memory_num: int = 5,
     return init_bank(batch, (height // 16) * (width // 16), max_memory_num, dtype,
                      key_dim=KEY_DIM // scale, val_dim=VAL_DIM // scale,
                      device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# training forwards (stages 1-4 of train.py; train_s1_trimap.py)
+# ---------------------------------------------------------------------------
+
+def _in_dtype(module: torch.nn.Module, dtype: Optional[torch.dtype]):
+    """module's call, in `dtype` where one is given: through copies of its
+    floating parameters and buffers cast to it (torch.func.functional_call),
+    so the network computes in `dtype` and the gradients flow through the
+    casts to the fp32 masters."""
+    if dtype is None:
+        return module
+    state = {name: t.to(dtype) if t.is_floating_point() else t
+             for name, t in itertools.chain(module.named_parameters(), module.named_buffers())}
+    return lambda *args, **kwargs: torch.func.functional_call(module, state, args, kwargs)
+
+
+def _checkpointed(fn):
+    """fn recomputed in the backward pass instead of keeping its activations."""
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
+
+
+def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stage: int,
+                        compute_dtype: Optional[torch.dtype] = None, remat: bool = False):
+    """Training forward and loss of stage 1-4 (alpha FullModel.forward,
+    models/alpha/model.py:189-312), on the device of the modules and batch.
+
+    batch, NHWC with S frames a clip: fg, bg [B, S, H, W, 3] RGB in [0, 1];
+    alpha [B, S, H, W, 1]; tri [B, S, H, W, 3] the one-hot GT trimap.
+    Frame 0 reads the GT trimap; at stage > 1 every later frame's trimap
+    is propagated: memorize the previous frame with its (refined) alpha,
+    trimap and hidden state, segment over the stacked bank, softmax.
+    Returns (total, aux): total = L_alpha_comp + L_lap + L_grad (+ L_tri at
+    stage > 1), train.py:355-366; aux holds the four terms, alphas and comps
+    [B, S, H, W, 1|3], and the trimap logits at stage > 1.
+
+    compute_dtype=torch.bfloat16 runs the networks (and the cross-feed) in
+    bf16 on casted copies of the weights; the gradients reach the fp32
+    masters, and ground truth and the loss arithmetic stay fp32.
+    remat=True recomputes each network call and frame loss in the backward
+    pass (torch.utils.checkpoint), as the JAX package's OTVM_REMAT=1 does:
+    the reads then run twice."""
+    refinement = stage > 2
+    if fba.refinement != refinement or (stm.hdim > 0) != refinement:
+        raise ValueError(f"the models do not match stage {stage}")
+    use_trimap_net = stage > 1
+    stm_c, fba_c = _in_dtype(stm, compute_dtype), _in_dtype(fba, compute_dtype)
+    ckpt = _checkpointed if remat else (lambda f: f)
+    fba_call = ckpt(fba_c)
+    stm_memorize = ckpt(functools.partial(stm_c, "memorize"))
+    stm_segment = ckpt(lambda im, ks, vs: stm_c("segment", im, ks, vs))
+    frame_loss = ckpt(functools.partial(L.fba_frame_loss, include_lap=False))
+
+    fg, bg, gt_alpha, tri = batch["fg"], batch["bg"], batch["alpha"], batch["tri"]
+    B, S = fg.shape[:2]
+    img = fg * gt_alpha + bg * (1.0 - gt_alpha)
+    # `img` stays fp32 for the loss; `img_c` feeds the networks
+    img_c = img.to(compute_dtype) if compute_dtype is not None else img
+    gt_trimask = (argmax_small(tri) == 1).float()[..., None]
+
+    preds_trimap = [None] * S
+    preds_trimap_refine = [None] * S
+    logit_trimap = [None] * (S - 1)
+    logit_trimap_refine = [None] * S
+    outs, routs = [None] * S, [None] * S
+    preds_trimap[0] = tri[:, 0].to(img_c.dtype)
+    preds_trimap_refine[0] = preds_trimap[0]
+    mem_k, mem_v = [], []
+
+    for t in range(S):
+        feats8, _ = make_trimap_features(preds_trimap[t])
+        x11 = torch.cat([normalize_image(img_c[:, t]), feats8], dim=-1)
+        out7, hid, rout7, rtri = fba_call(x11, img_c[:, t], feats8[..., -2:])
+        outs[t], routs[t] = out7, rout7
+        if refinement:
+            logit_trimap_refine[t] = rtri
+            if t > 0:
+                preds_trimap_refine[t] = torch.softmax(rtri, dim=-1)
+        if t == S - 1:
+            break
+        if not use_trimap_net:
+            preds_trimap[t + 1] = tri[:, t + 1].to(img_c.dtype)
+            continue
+        if refinement:
+            input_alpha, input_trimap = rout7[..., 0:1], preds_trimap_refine[t]
+            kwargs = dict(alpha=input_alpha[..., 0], hidden=hid)
+        else:
+            input_trimap, kwargs = preds_trimap[t], {}
+        k, v = stm_memorize(img_c[:, t], input_trimap[..., 1], input_trimap[..., 2], **kwargs)
+        mem_k.append(k)
+        mem_v.append(v)
+        logit = stm_segment(img_c[:, t + 1], torch.stack(mem_k, dim=1), torch.stack(mem_v, dim=1))
+        logit_trimap[t] = logit
+        preds_trimap[t + 1] = torch.softmax(logit, dim=-1)
+
+    def seq_loss(preds):
+        # the loss arithmetic is fp32; the Laplacian term is left to one
+        # lap_loss_diff7 over the whole sequence, both heads stacked
+        terms = [frame_loss(preds[t].float(), gt_trimask[:, t], gt_alpha[:, t], fg[:, t],
+                            bg[:, t], img[:, t]) for t in range(S)]
+        L_ac = sum(x[0] for x in terms) / S
+        L_gr = sum(x[1] for x in terms) / S
+        alphas, comps, fs, bs = (torch.stack([x[i] for x in terms], dim=1) for i in (3, 4, 5, 6))
+        L_gr = L_gr + L.temporal_coherence_loss(alphas, fs, bs, gt_alpha, fg, bg)
+        return L_ac, L_gr, alphas, comps, fs, bs
+
+    def diff7(alphas, fs, bs):
+        d = torch.cat([alphas - gt_alpha, fs - fg, bs - bg], dim=-1)
+        return d.reshape((B * S,) + tuple(d.shape[2:]))
+
+    L1 = seq_loss(outs)
+    if refinement:
+        L2 = seq_loss(routs)
+        L_alpha_comp, L_grad = L1[0] + L2[0], L1[1] + L2[1]
+        # the heads are summed, so the stacked 2*B*S diff normalizes by B*S
+        lap_in = torch.cat([diff7(L1[2], L1[4], L1[5]), diff7(L2[2], L2[4], L2[5])], dim=0)
+        alphas, comps = L2[2], L2[3]
+    else:
+        L_alpha_comp, L_grad = L1[0], L1[1]
+        lap_in = diff7(L1[2], L1[4], L1[5])
+        alphas, comps = L1[2], L1[3]
+    L_lap = ckpt(L.lap_loss_diff7)(lap_in, B * S)
+
+    aux = dict(alphas=alphas, comps=comps)
+    if use_trimap_net:
+        aux["logit_trimap"] = torch.stack(logit_trimap, dim=1)
+        loss_trimap = L.cross_entropy(aux["logit_trimap"].float(), argmax_small(tri[:, 1:]))
+        if refinement:
+            aux["logit_trimap_refine"] = torch.stack(logit_trimap_refine, dim=1)
+            loss_trimap = loss_trimap + L.cross_entropy(aux["logit_trimap_refine"].float(),
+                                                        argmax_small(tri))
+    else:
+        loss_trimap = torch.zeros((), device=fg.device)
+
+    total = L_alpha_comp + L_lap + L_grad
+    if stage > 1:
+        total = total + loss_trimap
+    aux.update(L_alpha_comp=L_alpha_comp, L_lap=L_lap, L_grad=L_grad, L_tri=loss_trimap)
+    return total, aux
+
+
+def trimap_train_forward(stm: STM, batch: Dict[str, torch.Tensor], ignore_label: int = 255,
+                         compute_dtype: Optional[torch.dtype] = None):
+    """Stage-1 trimap training forward (trimap FullModel._forward,
+    models/trimap/model.py:75-131), batched.  batch: img [B, S, H, W, 3] in
+    [0, 1], tri [B, S, H, W, 3] one-hot.  Frame t is segmented over the
+    memories of frames 0..t-1, each memorized with the trimap of its own
+    frame (GT at frame 0, propagated after).  Returns (loss, {'pred':
+    [B, S, H, W, 3]}): the CE of frames 1.. (fp32), averaged."""
+    if stm.hdim > 0:
+        raise ValueError("trimap training is the stage-1 STM (hdim -1)")
+    stm_c = _in_dtype(stm, compute_dtype)
+    img, tri = batch["img"], batch["tri"]
+    if compute_dtype is not None:
+        img, tri = img.to(compute_dtype), tri.to(compute_dtype)
+    S = img.shape[1]
+    preds = [tri[:, 0]]
+    logits, mem_k, mem_v = [], [], []
+    for t in range(1, S):
+        k, v = stm_c("memorize", img[:, t - 1], preds[t - 1][..., 1], preds[t - 1][..., 2])
+        mem_k.append(k)
+        mem_v.append(v)
+        logits.append(stm_c("segment", img[:, t], torch.stack(mem_k, dim=1),
+                            torch.stack(mem_v, dim=1)))
+        preds.append(torch.softmax(logits[-1], dim=-1))
+    gt = argmax_small(tri)
+    loss = sum(L.cross_entropy(logits[t - 1].float(), gt[:, t], ignore_label)
+               for t in range(1, S)) / float(S - 1)
+    return loss, dict(pred=torch.stack(preds, dim=1))

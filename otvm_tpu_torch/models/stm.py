@@ -155,6 +155,13 @@ class STM(nn.Module):
         self.KV_Q_r4 = KeyValue(16 * w, self.key_dim, self.val_dim)
         self.Decoder = Decoder(2 * self.val_dim, 8 * w, 4 * w, mdim=256 // scale)
 
+    def forward(self, method: str, *args, **kwargs):
+        """`memorize` or `segment`, by name: a module call, through which
+        torch.func.functional_call runs either on substituted weights."""
+        if method not in ("memorize", "segment"):
+            raise ValueError(f"STM has no method {method!r}")
+        return getattr(self, method)(*args, **kwargs)
+
     def memorize(self, frame: torch.Tensor, unknown: torch.Tensor, fg: torch.Tensor,
                  alpha: Optional[torch.Tensor] = None,
                  hidden: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:

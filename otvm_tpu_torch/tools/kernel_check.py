@@ -2,7 +2,8 @@
 
 `rel_err` and its tolerances are the comparison that chip_smoke.py and the
 card tests make; `control` makes the lower-precision input that shows the
-comparison can fail.  `device_ms` and `event_ms` are the timers of
+comparison can fail; `plain_read_grads` is what the read's gradients are
+held to.  `device_ms` and `event_ms` are the timers of
 chip_smoke.py and tools/bench_memory_read.py.
 """
 from __future__ import annotations
@@ -21,6 +22,12 @@ READ_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # rounded before the merge (`combine_control`) give ~2.5e-3 (through bf16)
 # and ~2e-4 (through fp16).
 COMBINE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# Read gradients, the autograd Function's (memory_read_vjp_plain) vs
+# autograd through the plain read, at the training shapes: bf16 rounds the
+# plain read's p (and so dp) mid-way (sound ~2.6e-3); fp32 differs by
+# summation order (~4e-7).  `control` inputs give 3.8e-2..5.5e-2 (bf16)
+# and 3e-4..4.3e-4 (fp32).
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # The control's narrower type: fp8 e4m3 for bf16, fp16 (TF32's mantissa)
 # for fp32.
 _NARROWER = {torch.bfloat16: torch.float8_e4m3fn, torch.float32: torch.float16}
@@ -36,6 +43,16 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def control(x: torch.Tensor) -> torch.Tensor:
     """x rounded through the next narrower type, back in x's dtype."""
     return x.to(_NARROWER[x.dtype]).to(x.dtype)
+
+
+def plain_read_grads(q_k, m_k, m_v, slot_mask, g):
+    """(dq_k, dm_k, dm_v): autograd through memory_read_plain, with `g` as
+    the output's gradient, on detached copies of the inputs."""
+    from ..kernels.memory_attn import memory_read_plain
+
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q_k, m_k, m_v)]
+        return torch.autograd.grad(memory_read_plain(*leaves, slot_mask), leaves, g)
 
 
 def combine_control(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -76,6 +76,22 @@ def stage_times(ev: StreamingEvaluator, size: int, reps: int):
         return {name: _median_ms(fn, reps) for name, fn in stages.items()}
 
 
+def _self_device_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def device_kernels(prof):
+    """The device-side events of a torch.profiler run (kernels, copies),
+    longest first, and their summed time in ms.  Host ops carry their
+    kernels' time too and would count it twice; so would a user
+    annotation's span on the device (the optimizer's step)."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and _self_device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=_self_device_us, reverse=True)
+    return kernels, sum(_self_device_us(e) for e in kernels) / 1e3
+
+
 def trace(ev: StreamingEvaluator, frames, tri, top: int):
     from torch.profiler import ProfilerActivity, profile
 
@@ -85,13 +101,8 @@ def trace(ev: StreamingEvaluator, frames, tri, top: int):
         ev.run_video(frames, tri)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    # device-side events only (kernels, copies); host ops carry their
-    # kernels' time too and would count it twice
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev(e) > 0]
-    busy_ms = sum(dev(e) for e in kernels) / 1e3
-    kernels.sort(key=dev, reverse=True)
+    dev = _self_device_us
+    kernels, busy_ms = device_kernels(prof)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,

@@ -13,14 +13,17 @@ that dropped the small terms would give).  For the combine, per output
 dtype: the fp32 merge against an fp64 one (sound) and partials rounded
 before the merge (`combine_control`: through bf16, or fp16 for an fp32
 output).  1088x1920 takes 256 query rows of its 8160, to keep the score
-matrix small.
+matrix small.  Then the read's gradients at the training shapes (B 4, HW
+400, T 1 and 2, no mask): the autograd Function's backward
+(`memory_read_vjp_plain`) against autograd through the plain read (sound),
+and autograd through the plain read on `control` inputs.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import memory_attn as ma
-from .kernel_check import combine_control, control, rel_err
+from .kernel_check import combine_control, control, plain_read_grads, rel_err
 
 # b, hw, t, slot mask, query rows, label
 CASES = [(1, 1024, 6, [1, 1, 1, 1, 1, 0], 1024, "512p count 5"),
@@ -57,6 +60,17 @@ def main():
             ctl = rel_err(ma.combine_plain(combine_control(acc, dt), ml, dt), want)
             print(f"{label:22s} {str(dt)[6:]:9s} combine: sound {sound:.3e}, "
                   f"control {ctl:.3e}")
+    for t in (1, 2):
+        q, k, v = torch.randn(4, 400, 128), torch.randn(4, t, 400, 128), torch.randn(4, t, 400, 512)
+        g = torch.randn(4, 400, 512)
+        for dt in (torch.float32, torch.bfloat16):
+            qq, kk, vv, gg = q.to(dt), k.to(dt), v.to(dt), g.to(dt)
+            want = plain_read_grads(qq, kk, vv, None, gg)
+            sound = ma.memory_read_vjp_plain(qq, kk, vv, None, gg)
+            ctl = plain_read_grads(control(qq), control(kk), control(vv), None, gg)
+            fmt = lambda grads: ", ".join(f"{rel_err(a, b):.3e}" for a, b in zip(grads, want))
+            print(f"{f'train T={t}':22s} {str(dt)[6:]:9s} read grads (dq, dk, dv): "
+                  f"sound {fmt(sound)}; control {fmt(ctl)}")
 
 
 if __name__ == "__main__":

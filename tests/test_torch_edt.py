@@ -1,6 +1,7 @@
 """Port JFA distance transform and click features (otvm_tpu_torch.nn.edt)
 against the JAX package's.  The JFA must be bit-exact: same steps, same
-neighbour order, same tie-break, integer-exact fp32 distances."""
+neighbour order (each neighbour read from the map the pass's earlier
+neighbours updated), same tie-break, integer-exact fp32 distances."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,24 @@ def test_edt_jfa_bit_exact(h, w, density, seed):
     s = _seeds(h, w, density, seed)
     if density > 0 and not s.any():
         s[h // 2, w // 2] = True
+    want = np.asarray(jedt.edt_sq_jfa(jnp.asarray(s)))
+    got = tedt.edt_sq_jfa(torch.from_numpy(s)[None])[0].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _blobs(h, w, cells, seed):
+    """A blob-shaped seed map, as a propagated trimap's: a coarse random
+    grid, bilinearly upsampled, above 0.5."""
+    grid = torch.from_numpy(np.random.RandomState(seed).rand(1, 1, cells, cells).astype(np.float32))
+    up = torch.nn.functional.interpolate(grid, size=(h, w), mode="bilinear", align_corners=True)
+    return (up[0, 0] > 0.5).numpy()
+
+
+@pytest.mark.parametrize("h,w,cells,seed", [(128, 128, 10, 2), (128, 128, 10, 5), (45, 70, 5, 2)])
+def test_edt_jfa_bit_exact_on_blobs(h, w, cells, seed):
+    """Maps on which a JFA that reads all 8 neighbours from the map the
+    pass started with ends one pixel at another seed than JAX's."""
+    s = _blobs(h, w, cells, seed)
     want = np.asarray(jedt.edt_sq_jfa(jnp.asarray(s)))
     got = tedt.edt_sq_jfa(torch.from_numpy(s)[None])[0].numpy()
     np.testing.assert_array_equal(got, want)

@@ -6,7 +6,10 @@ kernels' split arithmetic (plain partials merged by the plain combine)
 against the plain read; the launch geometry's coverage; and the fp32
 kernel's 3xTF32 arithmetic, emulated, against the plain read.  On a card:
 the CUDA kernels against their plain versions, by the norm-relative error
-that a lower-precision control fails (skipped without a card).  JAX is
+that a lower-precision control fails (skipped without a card).  The read's
+gradient: the autograd Function's plain backward against the JAX package's
+`_flash_bwd` on the CPU, and against autograd through the plain read on the
+CPU and on a card.  JAX is
 imported by the tests that use it, so the card's tests run where JAX is
 absent: `python -m pytest --noconftest -m cuda tests/test_torch_memory_attn.py`."""
 import numpy as np
@@ -14,8 +17,8 @@ import pytest
 import torch
 
 from otvm_tpu_torch.kernels import memory_attn as ma
-from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, READ_TOL, combine_control, control,
-                                               rel_err)
+from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, GRAD_TOL, READ_TOL, combine_control,
+                                               control, plain_read_grads, rel_err)
 
 # the JAX tests' shapes (tests/test_memory_attn_pallas.py): (hw, t, mask)
 CASES = [(64, 2, None), (96, 3, [1, 1, 0]), (128, 5, [1, 0, 0, 0, 0]), (70, 3, None)]
@@ -97,6 +100,50 @@ def test_wrapper_uses_plain_on_cpu():
     np.testing.assert_array_equal(got.numpy(), _plain(q, k, v, None))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ma.memory_read_cuda(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+
+
+@pytest.mark.parametrize("rows", [None, [[1, 0, 1], [0, 1, 1]]])
+def test_vjp_plain_matches_flash_bwd(rows):
+    """memory_read_vjp_plain against the JAX package's custom-VJP backward,
+    called with its residuals, fp32: summation order only."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from otvm_tpu.kernels.memory_attn import _flash_bwd
+    q, k, v = _inputs(2, 70, 3, seed=11)
+    g = np.random.RandomState(12).randn(2, 70, 512).astype(np.float32)
+    m = None if rows is None else np.asarray(rows, bool)
+    want = _flash_bwd((jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       None if m is None else jnp.asarray(m)), jnp.asarray(g))
+    got = ma.memory_read_vjp_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   None if m is None else torch.from_numpy(m), torch.from_numpy(g))
+    for a, b in zip(got, want[:3]):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-4)
+    assert (want[3] is None) == (m is None)   # the mask gets no gradient
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_memory_read_carries_a_gradient_on_cpu(dtype):
+    """Inputs that require grad go through the autograd Function: its
+    gradients are memory_read_vjp_plain's and agree with autograd through
+    the plain read; other inputs take the direct call, with no graph."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _inputs(2, 70, 2, seed=13))
+    g = torch.from_numpy(np.random.RandomState(14).randn(2, 70, 512).astype(np.float32)).to(dt)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ma.memory_read(*leaves)
+    assert out.requires_grad and out.grad_fn is not None
+    assert torch.equal(out, ma.memory_read_plain(q, k, v))
+    got = torch.autograd.grad(out, leaves, g)
+    for a, b, c, d in zip(got, ma.memory_read_vjp_plain(q, k, v, None, g),
+                          plain_read_grads(q, k, v, None, g),
+                          plain_read_grads(control(q), control(k), control(v), None, g)):
+        assert a.dtype == dt and torch.equal(a, b)
+        assert rel_err(a, c) <= GRAD_TOL[dt] < rel_err(d, c)
+    assert ma.memory_read(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert ma.memory_read(*leaves).grad_fn is None
 
 
 # (b, hw, t, per-row masks, splits): ragged query tiles (70), splits that
@@ -283,3 +330,36 @@ def test_kernels_run_on_a_card_that_is_not_current():
         torch.cuda.synchronize(q.device)
         assert rel_err(got, ma.memory_read_plain(q, k, v, mask)) <= READ_TOL[dt]
     assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 2])
+def test_memory_read_carries_a_gradient_on_cuda(request, dtype, t):
+    """At the training shapes (B 4, HW 400 of a 320x320 crop, T 1 and 2):
+    memory_read on inputs that require grad launches the kernel once and
+    returns a tensor with a grad_fn; its output and gradients agree with
+    autograd through the plain read, and a lower-precision control does
+    not.  memory_read_cuda itself raises on such inputs."""
+    _cuda_ready()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in _inputs(4, 400, t, seed=15))
+    g = torch.from_numpy(np.random.RandomState(16).randn(4, 400, 512).astype(np.float32)
+                         ).cuda().to(dt)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = ma.launches
+    out = ma.memory_read(*leaves)
+    assert ma.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert ma.launches == before + 1          # the backward launches no kernel
+    assert rel_err(out, ma.memory_read_plain(q, k, v)) <= READ_TOL[dt]
+    errs = []
+    for a, want, ctl in zip(got, plain_read_grads(q, k, v, None, g),
+                            plain_read_grads(control(q), control(k), control(v), None, g)):
+        errs.append((rel_err(a, want), rel_err(ctl, want)))
+        assert errs[-1][0] <= GRAD_TOL[dt] < errs[-1][1]
+    request.node.user_properties += [("grad_rel_err", max(e[0] for e in errs)),
+                                     ("grad_control_rel_err", min(e[1] for e in errs))]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ma.memory_read_cuda(*leaves)
