@@ -8,27 +8,32 @@ Phases, in order; any failure exits non-zero:
   2. build the memory-read kernels from otvm_tpu_torch/kernels/csrc (nvcc,
      sm_90a), timed; print ptxas's registers and spills; count the
      tensor-core instructions (HGMMA: the bf16 wgmma; HMMA ... TF32: the
-     fp32 3xTF32 mma.sync) and TMA loads (UTMALDG) in the library: each
-     must be there;
+     fp32 3xTF32 mma.sync), TMA loads (UTMALDG) and cluster barriers
+     (UCGABAR_*: the split reads' cluster merge) in the library: each must
+     be there; print how many blocks and clusters of 2..8 blocks of each
+     read kernel the card holds at once (the split rule's limits);
   3. the kernel against its plain PyTorch version on the card, fp32 (TF32
      off in the plain version) and bf16, at the stream's shapes (512p:
      HW=1024, T=6, 1..6 valid slots; 1088x1920: HW=8160, T=3), ragged
-     tiles with a non-prefix mask, and no valid slot; then its time at
-     512p count 5 and 1088x1920 count 2 beside the plain version's, SDPA's
-     (a yardstick only: the port never calls it) and the bound (fp32: at
-     the 3xTF32 rate, the CUDA-core bound printed beside it); the combine
-     kernel (which merges the split reads at 512p), bf16 and fp32 output,
-     against its plain version, timed.  Each comparison is the
+     tiles with a non-prefix mask, and no valid slot; split reads (one
+     launch, merged in the kernel: in one cluster a tile, or through L2)
+     at forced splits 2..8, each merge forced, and the chosen split, at
+     512p, the training shapes, empty splits, ragged tiles, Ck=32 and
+     Cv=384; then the whole read's time at
+     512p count 5, 1088x1920 count 2 and the training shapes (B 4, HW 400,
+     T 1 and 2) beside the plain version's, SDPA's (a yardstick only: the
+     port never calls it) and the bound (fp32: at the 3xTF32 rate, the
+     CUDA-core bound printed beside it).  Each comparison is the
      norm-relative error (otvm_tpu_torch/tools/kernel_check.py), and a
      lower-precision control must fail it;
   4. the full-width stage-4 stream through StreamingEvaluator.run_video:
      512x512, a bank of at most 5, memorize every 10th frame, random
      weights from a seed, fp32 (the evaluator's default dtype), once with
-     the kernel and once with the plain read.  The read kernel and the
-     combine must each be launched once per segment call (frames - 1),
-     every read must match the plain read on the same inputs, and the two
-     streams must agree on frames 0 and 1 (later frames are printed: see
-     the note in main);
+     the kernel and once with the plain read.  The read kernel must be
+     launched once per segment call (frames - 1), each split and merged in
+     the kernel (the 512p read splits), every read must match the plain read on the
+     same inputs, and the two streams must agree on frames 0 and 1 (later
+     frames are printed: see the note in main);
   5. the same stream in bf16 (the serving mode): a lockstep-checked
      warm-up, then timed: frames/sec, finite outputs, and frame 0 within a
      loose bound of the fp32 stream;
@@ -36,12 +41,12 @@ Phases, in order; any failure exits non-zero:
      training shapes (B 4, HW 400 of a 320x320 crop, T 1 and 2, no mask,
      fp32 and bf16): its output and its three input gradients against
      autograd through the plain read (a lower-precision control must fail),
-     memory_read_cuda refusing inputs that require grad, and the times of
-     the kernel, the plain read, SDPA and the plain backward.  Then the
+     memory_read_cuda refusing inputs that require grad, and the plain
+     backward's time.  Then the
      stage-4 train step (make_train_step) at config.py's crop: 320x320,
      B 4, S 3, random weights from a seed, seeded encode_wire batches, fp32:
      8 steps with every read's forward and backward checked in lockstep, 2
-     read launches a step and the combines launch_geometry gives, a finite
+     read launches a step, split and merged as launch_geometry says, a finite
      loss, the parameters unchanged through RAdam's 5 held-back steps and
      changed after; then timed steps (CUDA events), the peak memory and the
      read's share of a profiled step.  Then bf16 steps (bf16 kernel, fp32
@@ -71,9 +76,25 @@ SKIP = 10
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 FP32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
-TIMED = [(1, 1024, 6, 5, "512p count 5"), (1, 8160, 3, 2, "1088x1920 count 2")]   # b, hw, t, count
 # the stage-4 train step at config.py's defaults: batch, frames a clip, crop
 TRAIN_B, TRAIN_S, TRAIN_HW = 4, 3, 320
+TRAIN_TOKENS = (TRAIN_HW // 16) ** 2    # HW of the read at the crop: 400
+# timed reads: b, hw, t, valid slots (None: no mask, as in training), label
+TIMED = [(1, 1024, 6, 5, "512p count 5"), (1, 8160, 3, 2, "1088x1920 count 2"),
+         (TRAIN_B, TRAIN_TOKENS, 1, None, "train T=1"),
+         (TRAIN_B, TRAIN_TOKENS, 2, None, "train T=2")]
+# split reads held to plain at forced splits 2..8 (merged as the rule
+# would), forced merges (cluster 1: through L2; cluster = splits: in a
+# cluster), and the chosen split:
+# b, hw, t, Ck, Cv, slot mask (per batch row, or one for all; None: none), label
+SPLIT_SHAPES = [(1, 1024, 6, 128, 512, [1, 1, 1, 1, 1, 0], "512p count 5"),
+                (TRAIN_B, TRAIN_TOKENS, 2, 128, 512, None, "train T=2"),
+                (1, 48, 3, 128, 512, [0, 1, 0], "HW=48 (empty splits)"),
+                (2, 70, 3, 128, 512, [[1, 0, 1], [0, 1, 1]], "HW=70 ragged, per-row masks"),
+                (2, 64, 4, 32, 128, [[1, 1, 0, 0], [0, 0, 0, 1]], "Ck=32 Cv=128"),
+                (1, 100, 2, 128, 384, [1, 1], "Cv=384")]
+SPLIT_SETTINGS = ([(s, None) for s in range(2, 9)] + [(8, 1), (6, 1), (4, 1), (3, 1), (2, 1)]
+                  + [(4, 4), (3, 3), (None, None)])
 TRAIN_STEPS = 8         # RAdam holds back steps 1-5 (N_sma < 5) and updates from step 6
 TRAIN_TIMED = 4
 BF16_STEPS = 3
@@ -88,13 +109,15 @@ def card_line() -> str:
 
 
 def sass_counts(ma):
-    """Phase 2: HGMMA, TF32 HMMA and UTMALDG instructions in the built
-    library."""
+    """Phase 2: HGMMA, TF32 HMMA, UTMALDG and cluster-barrier (UCGABAR_*)
+    instructions in the built library, and the cluster barrier's names."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(ma.library_path)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
+    barriers = re.findall(r"\bUCGABAR_\w+", sass)
     return {"HGMMA": len(re.findall(r"\bHGMMA\b", sass)),
             "HMMA TF32": len(re.findall(r"\bHMMA\.\S*TF32\b", sass)),
-            "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass))}
+            "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass)),
+            "UCGABAR": len(barriers)}, sorted(set(barriers))
 
 
 def ptxas_report(log):
@@ -103,7 +126,7 @@ def ptxas_report(log):
     report = []
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d(memory_(?:read_tc|read_f32tc|combine))I(.*?)EEv", line)
+            m = re.search(r"\d(memory_(?:read_tc|read_f32tc))I(.*?)EEv", line)
             name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2))) or m.group(2)}>" \
                 if m else line.strip()
             report.append((name, []))
@@ -155,10 +178,11 @@ def check(got, want, tol, what, ctl=None):
 
 
 def kernel_phase(torch, ma):
-    """Phase 3: kernel vs plain at the stream's shapes; timings at 512p
-    count 5 and 1088x1920 count 2; the combine kernel at 512p."""
-    from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, READ_TOL, combine_control,
-                                                   control, device_ms, event_ms)
+    """Phase 3: kernel vs plain at the stream's shapes; split reads at
+    forced splits 2..8 and the chosen split; timings at 512p count 5,
+    1088x1920 count 2 and the training shapes."""
+    from otvm_tpu_torch.tools.kernel_check import (READ_TOL, control, device_ms, event_ms,
+                                                   rel_err)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     prefix = lambda b, t, c: torch.arange(t, device="cuda")[None].expand(b, t) < c
@@ -167,73 +191,86 @@ def kernel_phase(torch, ma):
               (2, 70, 3, torch.tensor([[True, False, True], [False, True, True]],
                                       device="cuda"), "HW=70 non-prefix mask"),
               (1, 1024, 6, prefix(1, 6, 0), "512p count 0")]
-    errs = {}
+    randn = lambda *shape, dt: torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    inputs = lambda b, hw, t, ck, cv, dt: (randn(b, hw, ck, dt=dt), randn(b, t, hw, ck, dt=dt),
+                                           randn(b, t, hw, cv, dt=dt))
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         for b, hw, t, mask, label in cases:
-            q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
-            k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
-            v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
+            q, k, v = inputs(b, hw, t, 128, 512, dt)
             got = ma.memory_read(q, k, v, mask)
             torch.cuda.synchronize()
             want = ma.memory_read_plain(q, k, v, mask)
             ctl = ma.memory_read_plain(control(q), control(k), control(v), mask)
-            errs[dname, label] = check(got, want, READ_TOL[dt], f"kernel {dname} {label}", ctl)
+            check(got, want, READ_TOL[dt], f"kernel {dname} {label}", ctl)
 
-    # timings at the stream's steady state (512p, 5 valid slots of 6) and
-    # at 1088x1920 (the VM108 protocol's large inputs: 2 valid slots of 3)
+    # split reads: one launch each, merged in the kernel; forced 2..8,
+    # forced merges (where the L2 merge's grid fits on the card at once),
+    # then the wrapper's own choice
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for b, hw, t, ck, cv, rows, label in SPLIT_SHAPES:
+            q, k, v = inputs(b, hw, t, ck, cv, dt)
+            mask = None if rows is None else \
+                torch.tensor(rows, dtype=torch.bool, device="cuda").expand(b, t).contiguous()
+            want = ma.memory_read_plain(q, k, v, mask)
+            rel_ctl = rel_err(ma.memory_read_plain(control(q), control(k), control(v), mask), want)
+            table = ma.max_active_clusters(dt, ck, cv)
+            rels = {}
+            tiles = -(-hw // ma.BQ) * (cv // ma.value_tile(cv)) * b
+            for splits, blocks in SPLIT_SETTINGS:
+                if blocks == 1 and tiles * splits > table[1]:
+                    continue
+                n, c = ma.launch_geometry(b, hw, t, cv, dt, table, splits, blocks)[2:]
+                before = merges(ma)
+                got = ma.memory_read_cuda(q, k, v, mask, _splits=splits, _cluster=blocks)
+                torch.cuda.synchronize()
+                assert merges(ma) == (before[0] + (c > 1), before[1] + (n > c)), \
+                    f"{label}: splits {n}, blocks {c}"
+                assert bool(got.float().isfinite().all()), f"non-finite split read ({label})"
+                rels[f"{'chosen ' if splits is None else ''}{n}x{c}"] = rel_err(got, want)
+            print(f"  split reads {dname:8s} {label}: rel err at splits x blocks " +
+                  ", ".join(f"{key} {r:.2e}" for key, r in rels.items()) +
+                  f"; control {rel_ctl:.2e} (tol {READ_TOL[dt]:g})")
+            rels = list(rels.values())
+            assert rel_ctl > READ_TOL[dt], f"the check would pass the control ({label})"
+            assert max(rels) <= READ_TOL[dt], f"split read {dname} {label}: rel err {max(rels):.3e}"
+
+    # timings of the whole read (the split merged in its one launch): the
+    # stream's steady state (512p, 5 valid slots of 6), 1088x1920 (the
+    # VM108 protocol's large inputs: 2 valid slots of 3), and the training
+    # shapes (no mask)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     timing = {}
     for b, hw, t, count, label in TIMED:
         for dname in ("bfloat16", "float32"):
             dt = getattr(torch, dname)
-            q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
-            k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
-            v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
-            mask = prefix(b, t, count)
-            pos_mask = mask.repeat_interleave(hw, dim=1)[:, None, None, :]   # [B,1,1,T*HW]
+            q, k, v = inputs(b, hw, t, 128, 512, dt)
+            mask = None if count is None else prefix(b, t, count)
+            pos_mask = None if mask is None else \
+                mask.repeat_interleave(hw, dim=1)[:, None, None, :]   # [B,1,1,T*HW]
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
                 q[:, None], k.reshape(b, 1, t * hw, 128), v.reshape(b, 1, t * hw, 512),
                 attn_mask=pos_mask)
-            check(sdpa()[:, 0], ma.memory_read_plain(q, k, v, mask), READ_TOL[dt],
-                  f"SDPA yardstick {dname} {label}")
-            bound_ms, bound_by, cuda_cores_ms = read_cost(dt, b, hw, count, t=t)
+            want = ma.memory_read_plain(q, k, v, mask)
+            rel, err = check(ma.memory_read(q, k, v, mask), want, READ_TOL[dt],
+                             f"kernel {dname} {label} (timed)",
+                             ma.memory_read_plain(control(q), control(k), control(v), mask))
+            check(sdpa()[:, 0], want, READ_TOL[dt], f"SDPA yardstick {dname} {label}")
+            bound_ms, bound_by, cuda_cores_ms = read_cost(dt, b, hw, count or t, t=t)
+            splits, blocks = ma.launch_geometry(b, hw, t, 512, dt,
+                                                ma.max_active_clusters(dt, 128, 512))[2:]
             row = timing[dname, label] = dict(
                 ms=device_ms(lambda: ma.memory_read(q, k, v, mask), flush=flush),
                 event_ms=event_ms(lambda: ma.memory_read(q, k, v, mask), flush=flush),
                 plain_ms=device_ms(lambda: ma.memory_read_plain(q, k, v, mask), flush=flush),
                 library_ms=device_ms(sdpa, flush=flush),
-                bound_ms=bound_ms, bound_by=bound_by, rel_err=errs[dname, label][0],
-                max_abs_err=errs[dname, label][1])
+                bound_ms=bound_ms, bound_by=bound_by, rel_err=rel, max_abs_err=err,
+                splits=splits, cluster_blocks=blocks)
             if cuda_cores_ms is not None:
                 row["bound_cuda_cores_ms"] = cuda_cores_ms
             print(f"  time {dname:8s} {label}: " + fmt_row(row))
             print_faster(dname, label, row)
-
-    # the combine kernel, on the split partials of the stream's 512p read,
-    # merged into each dtype
-    b, hw, t, count, label = TIMED[0]
-    _, _, splits = ma.launch_geometry(b, hw, t, 512, torch.cuda.get_device_properties(0)
-                                      .multi_processor_count)
-    for dname in ("bfloat16", "float32"):
-        dt = getattr(torch, dname)
-        q = torch.randn(b, hw, 128, generator=gen, device="cuda").to(dt)
-        k = torch.randn(b, t, hw, 128, generator=gen, device="cuda").to(dt)
-        v = torch.randn(b, t, hw, 512, generator=gen, device="cuda").to(dt)
-        acc, ml = ma.memory_read_partials_plain(q, k, v, prefix(b, t, count), splits)
-        got = ma.memory_combine_cuda(acc, ml, dt)
-        want = ma.combine_plain(acc, ml, dt)
-        # control: the partials rounded (through bf16, or fp16 for fp32) before the merge
-        rel, err = check(got, want, COMBINE_TOL[dt], f"combine {dname} {label}",
-                         ma.combine_plain(combine_control(acc, dt), ml, dt))
-        nbytes = acc.numel() * 4 + ml.numel() * 4 + got.numel() * dt.itemsize
-        timing[f"combine {dname}", label] = row = dict(
-            ms=device_ms(lambda: ma.memory_combine_cuda(acc, ml, dt), flush=flush),
-            event_ms=event_ms(lambda: ma.memory_combine_cuda(acc, ml, dt), flush=flush),
-            plain_ms=device_ms(lambda: ma.combine_plain(acc, ml, dt), flush=flush),
-            library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
-            rel_err=rel, max_abs_err=err, splits=splits)
-        print(f"  time combine {dname} {label} ({splits} splits): " + fmt_row(row))
     return timing
 
 
@@ -290,12 +327,13 @@ def lockstep_grad_check(torch, ma, dname):
 
 def read_grad_phase(torch, ma, flush):
     """Phase 6, first part: the read's autograd Function at the training
-    shapes, against autograd through the plain read; times."""
+    shapes, against autograd through the plain read; the plain backward's
+    time (the forward's is phase 3's)."""
     from otvm_tpu_torch.tools.kernel_check import (GRAD_TOL, READ_TOL, control, device_ms,
                                                    plain_read_grads)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, hw = TRAIN_B, (TRAIN_HW // 16) ** 2
+    b, hw = TRAIN_B, TRAIN_TOKENS
     timing = {}
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
@@ -311,9 +349,8 @@ def read_grad_phase(torch, ma, flush):
             grads = torch.autograd.grad(out, leaves, g)
             torch.cuda.synchronize()
             ctl_q, ctl_k, ctl_v = control(q), control(k), control(v)
-            rel, err = check(out.detach(), ma.memory_read_plain(q, k, v), READ_TOL[dt],
-                             f"Function forward {dname} {label}",
-                             ma.memory_read_plain(ctl_q, ctl_k, ctl_v))
+            check(out.detach(), ma.memory_read_plain(q, k, v), READ_TOL[dt],
+                  f"Function forward {dname} {label}", ma.memory_read_plain(ctl_q, ctl_k, ctl_v))
             grad_rel = [check(got, want, GRAD_TOL[dt], f"Function d{name} {dname} {label}", ctl)[0]
                         for got, want, ctl, name in zip(
                             grads, plain_read_grads(q, k, v, None, g),
@@ -324,23 +361,26 @@ def read_grad_phase(torch, ma, flush):
             except RuntimeError:
                 refused = True
             assert refused, "memory_read_cuda returned a result without a gradient"
-
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                q[:, None], k.reshape(b, 1, t * hw, 128), v.reshape(b, 1, t * hw, 512))
-            check(sdpa()[:, 0], ma.memory_read_plain(q, k, v), READ_TOL[dt],
-                  f"SDPA yardstick {dname} {label}")
-            bound_ms, bound_by, _ = read_cost(dt, b, hw, t, t=t)
             row = timing[dname, label] = dict(
-                ms=device_ms(lambda: ma.memory_read(q, k, v), flush=flush),
-                plain_ms=device_ms(lambda: ma.memory_read_plain(q, k, v), flush=flush),
-                library_ms=device_ms(sdpa, flush=flush),
-                bound_ms=bound_ms, bound_by=bound_by, rel_err=rel, max_abs_err=err,
                 grad_rel_err=max(grad_rel),
                 backward_plain_ms=device_ms(lambda: ma.memory_read_vjp_plain(q, k, v, None, g),
                                             flush=flush))
-            print(f"  time {dname:8s} {label}: " + fmt_row(row))
-            print_faster(dname, label, row)
+            print(f"  time {dname:8s} {label} backward: " + fmt_row(row))
     return timing
+
+
+def merges(ma):
+    """(split launches merged in a cluster, through L2) so far."""
+    return ma.cluster_launches, ma.l2_merge_launches
+
+
+def merges_per_step(ma, dt):
+    """Of a clip's reads (banks of 1 .. S-1 slots at the crop), how many
+    split and merge in a cluster, and how many through L2."""
+    table = ma.max_active_clusters(dt, 128, 512)
+    kinds = [ma.launch_geometry(TRAIN_B, TRAIN_TOKENS, t, 512, dt, table)[2:]
+             for t in range(1, TRAIN_S)]
+    return (sum(c > 1 for _, c in kinds), sum(n > c for n, c in kinds))
 
 
 def train_phase(torch, ma, card):
@@ -359,17 +399,13 @@ def train_phase(torch, ma, card):
     step = T.make_train_step(cfg)
     params = state.optimizer.param_groups[0]["params"]
     start = [p.detach().clone() for p in params]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    hw = (TRAIN_HW // 16) ** 2
     reads_per_step = TRAIN_S - 1
-    # a clip's reads see banks of 1 .. S-1 slots; the split ones are merged
-    combines_per_step = sum(ma.launch_geometry(TRAIN_B, hw, t, 512, sms)[2] > 1
-                            for t in range(1, TRAIN_S))
+    split32, split16 = (merges_per_step(ma, dt) for dt in (torch.float32, torch.bfloat16))
     out = dict(params=sum(p.numel() for p in params), reads_per_step=reads_per_step,
-               combines_per_step=combines_per_step)
+               merges_per_step=split32, bf16_merges_per_step=split16)
 
     torch.cuda.synchronize()
-    ma.launches = ma.combine_launches = 0
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     with lockstep_check(torch, ma, "float32") as fwd_errs, \
             lockstep_grad_check(torch, ma, "float32") as bwd_errs:
         for i in range(TRAIN_STEPS):
@@ -382,16 +418,16 @@ def train_phase(torch, ma, card):
             assert np.isfinite(loss), f"fp32 step {i + 1}: loss {loss}"
             assert moved == (i >= 5), f"fp32 step {i + 1}: RAdam should " \
                 f"{'update' if i >= 5 else 'hold back'} (parameters moved: {moved})"
-    out.update(launches=ma.launches, combine_launches=ma.combine_launches,
-               fwd_err=max(fwd_errs), bwd_err=max(bwd_errs))
-    print(f"  launches in {TRAIN_STEPS} fp32 steps: memory_read {ma.launches}, memory_combine "
-          f"{ma.combine_launches} (want {reads_per_step} and {combines_per_step} a step); every "
-          f"read vs plain on its own inputs: forward rel err <= {max(fwd_errs):.3e}, backward "
-          f"<= {max(bwd_errs):.3e}")
+    out.update(launches=ma.launches, merges=merges(ma), fwd_err=max(fwd_errs),
+               bwd_err=max(bwd_errs))
+    print(f"  launches in {TRAIN_STEPS} fp32 steps: memory_read {ma.launches}, of them merged in "
+          f"a cluster / through L2 {merges(ma)} (want {reads_per_step} and {split32} a step); "
+          f"every read vs plain on its own inputs: forward rel err <= {max(fwd_errs):.3e}, "
+          f"backward <= {max(bwd_errs):.3e}")
     assert ma.launches == len(fwd_errs) == len(bwd_errs) == reads_per_step * TRAIN_STEPS, \
         "the fp32 train steps did not run the kernel and its backward once per read"
-    assert ma.combine_launches == combines_per_step * TRAIN_STEPS, \
-        "the fp32 train steps did not merge their split reads"
+    assert merges(ma) == tuple(n * TRAIN_STEPS for n in split32), \
+        "the fp32 train steps did not split their reads as launch_geometry says"
 
     torch.cuda.reset_peak_memory_stats()
     ev_ms, wall_ms = [], []
@@ -421,24 +457,24 @@ def train_phase(torch, ma, card):
         state, metrics = step16(state, batches[0])
     assert np.isfinite(metrics["loss"].item())
     torch.cuda.synchronize()
-    ma.launches = ma.combine_launches = 0
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     torch.cuda.reset_peak_memory_stats()
     ev16, losses16 = [], []
     for i in range(BF16_STEPS):
         state, metrics, e, _ = timed_step(step16, state, batches[1 + i])
         ev16.append(e)
         losses16.append(metrics["loss"].item())
-    out.update(bf16_launches=ma.launches, bf16_combine_launches=ma.combine_launches,
+    out.update(bf16_launches=ma.launches, bf16_merges=merges(ma),
                bf16_step_ms=float(np.median(ev16)),
                bf16_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"  bf16 stage-4 steps: losses {', '.join(f'{x:.5f}' for x in losses16)}; "
           f"{out['bf16_step_ms']:.1f} ms a step (median of {BF16_STEPS}), peak memory "
-          f"{out['bf16_peak_gb']:.2f} GB; launches memory_read {ma.launches}, memory_combine "
-          f"{ma.combine_launches}; warm-up step vs plain: forward <= {max(f16):.3e}, backward "
-          f"<= {max(b16):.3e}")
+          f"{out['bf16_peak_gb']:.2f} GB; launches memory_read {ma.launches}, of them merged in "
+          f"a cluster / through L2 {merges(ma)} (want {split16} a step); warm-up step vs plain: "
+          f"forward <= {max(f16):.3e}, backward <= {max(b16):.3e}")
     assert all(np.isfinite(losses16)), "bf16 train step: non-finite loss"
     assert ma.launches == reads_per_step * BF16_STEPS, "the bf16 steps did not run the kernel"
-    assert ma.combine_launches == combines_per_step * BF16_STEPS
+    assert merges(ma) == tuple(n * BF16_STEPS for n in split16)
     del state, step, step16, start
     torch.cuda.empty_cache()
 
@@ -446,21 +482,22 @@ def train_phase(torch, ma, card):
     cfg1 = config.get_cfg_defaults()
     state1 = T.init_train_state(cfg1, seed=2)
     step1 = T.make_trimap_s1_train_step(cfg1)
-    ma.launches = ma.combine_launches = 0
+    split1 = merges_per_step(ma, torch.bfloat16 if cfg1.train.bf16 else torch.float32)
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     losses1, ms1 = [], []
     for i in range(TRIMAP_STEPS):
         state1, metrics, e, _ = timed_step(step1, state1, batches[i])
         assert metrics["pred_lab"].shape == (TRAIN_B, TRAIN_S, TRAIN_HW, TRAIN_HW)
         losses1.append(metrics["loss"].item())
         ms1.append(e)
-    out.update(trimap_launches=ma.launches, trimap_combine_launches=ma.combine_launches,
+    out.update(trimap_launches=ma.launches, trimap_merges=merges(ma),
                trimap_step_ms=float(np.median(ms1)))
     print(f"  trimap-s1 steps: losses {', '.join(f'{x:.5f}' for x in losses1)}; "
-          f"{out['trimap_step_ms']:.1f} ms a step; launches memory_read {ma.launches}, "
-          f"memory_combine {ma.combine_launches}")
+          f"{out['trimap_step_ms']:.1f} ms a step; launches memory_read {ma.launches}, of them "
+          f"merged in a cluster / through L2 {merges(ma)} (want {split1} a step)")
     assert all(np.isfinite(losses1)), "trimap-s1 train step: non-finite loss"
     assert ma.launches == reads_per_step * TRIMAP_STEPS, "the trimap steps did not run the kernel"
-    assert ma.combine_launches == combines_per_step * TRIMAP_STEPS
+    assert merges(ma) == tuple(n * TRIMAP_STEPS for n in split1)
     return out
 
 
@@ -521,14 +558,29 @@ def main() -> int:
     report = ptxas_report(ma.build_log)
     for kernel, lines in report:
         print(f"  ptxas {kernel}: " + "; ".join(lines))
+    # The fp32 consumers hold all 240 of their registers in the main loop:
+    # a spill of more than one 4-byte value there is a broken build.  One
+    # value is allowed: the build that spills it ran the fp32 read fastest
+    # (PERF.md, PR 5).
     f32 = [lines for kernel, lines in report if kernel.startswith("memory_read_f32tc")]
-    assert f32 and all(any(" 0 bytes spill stores, 0 bytes spill loads" in line for line in lines)
-                       for lines in f32), "the fp32 kernel spills registers"
-    sass = sass_counts(ma)
-    print(f"  SASS of {ma.library_path.name}: " + ", ".join(f"{op} {n}" for op, n in sass.items()))
+    spills = [int(m) for lines in f32 for line in lines
+              for m in re.findall(r"(\d+) bytes spill stores", line)]
+    assert f32 and spills and max(spills) <= 4, f"the fp32 kernel spills registers: {spills}"
+    sass, barriers = sass_counts(ma)
+    print(f"  SASS of {ma.library_path.name}: " + ", ".join(f"{op} {n}" for op, n in sass.items())
+          + f" ({', '.join(barriers)})")
     assert sass["HGMMA"] > 0, "no wgmma (HGMMA) instruction in the built library"
     assert sass["HMMA TF32"] > 0, "no TF32 mma.sync (HMMA ... TF32) in the built library"
     assert sass["UTMALDG"] > 0, "no TMA load (UTMALDG) in the built library"
+    assert sass["UCGABAR"] > 0, "no cluster barrier (UCGABAR_*) in the built library"
+    clusters = {}
+    for dname in ("bfloat16", "float32"):
+        for ck, cv in ((128, 512), (128, 384), (32, 128)):
+            table = clusters[f"{dname} Ck={ck} Cv={cv}"] = \
+                ma.max_active_clusters(getattr(torch, dname), ck, cv)
+            print(f"  max active clusters, {dname} Ck={ck} Cv={cv} (CVT {ma.value_tile(cv)}), "
+                  f"by cluster size (1: blocks): " +
+                  ", ".join(f"{s}: {n}" for s, n in table.items()))
 
     print("phase 3: kernel vs plain")
     timing = kernel_phase(torch, ma)
@@ -541,20 +593,20 @@ def main() -> int:
     ev = StreamingEvaluator(stm_sd, fba_sd, proto)
     ev_plain = StreamingEvaluator(stm_sd, fba_sd, proto, memory_impl="plain")
     torch.cuda.synchronize()
-    ma.launches = ma.combine_launches = 0
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     with lockstep_check(torch, ma, "float32") as read_errs:
         ka, kt, kfps = ev.run_video(frames, tri)
-    fp32_launches, fp32_combine_launches = ma.launches, ma.combine_launches
+    fp32_launches, fp32_merges = ma.launches, merges(ma)
     pa, pt, _ = ev_plain.run_video(frames, tri)
-    print(f"  launches in the fp32 kernel stream: memory_read {fp32_launches}, memory_combine "
-          f"{fp32_combine_launches} (segment calls: {N_FRAMES - 1}); every read vs plain on "
-          f"its own inputs: rel err <= {max(read_errs):.3e}; fp32 {kfps:.2f} frames/s "
+    print(f"  launches in the fp32 kernel stream: memory_read {fp32_launches}, of them merged "
+          f"in a cluster / through L2 {fp32_merges} (segment calls: {N_FRAMES - 1}); every read vs "
+          f"plain on its own inputs: rel err <= {max(read_errs):.3e}; fp32 {kfps:.2f} frames/s "
           f"(lockstep-checked)")
     check_outputs(ka, kt, N_FRAMES, "fp32 kernel stream")
     check_outputs(pa, pt, N_FRAMES, "fp32 plain stream")
     assert fp32_launches == len(read_errs) == N_FRAMES - 1, \
         "the stream did not run the kernel once per segment call"
-    assert fp32_combine_launches == N_FRAMES - 1, "the fp32 stream did not merge its split reads"
+    assert sum(fp32_merges) == N_FRAMES - 1, "the fp32 stream did not split its reads"
     # Stream against stream.  Frame 0 reads no memory: identical.  Frame 1
     # reads a bank written from identical state: the reads differ by fp32
     # summation order (~1e-6); where a trimap argmax sits on a near-tie it
@@ -583,14 +635,14 @@ def main() -> int:
     print(f"  warm-up: every bf16 read vs plain on its own inputs: rel err <= "
           f"{max(read_errs16):.3e}")
     torch.cuda.synchronize()
-    ma.launches = ma.combine_launches = 0
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     ba, bt, fps = ev16.run_video(frames, tri)
-    bf16_launches, combine_launches = ma.launches, ma.combine_launches
+    bf16_launches, bf16_merges = ma.launches, merges(ma)
     check_outputs(ba, bt, N_FRAMES, "bf16 stream")
-    print(f"  launches in the bf16 stream: memory_read {bf16_launches}, "
-          f"memory_combine {combine_launches}")
+    print(f"  launches in the bf16 stream: memory_read {bf16_launches}, of them merged in a "
+          f"cluster / through L2 {bf16_merges}")
     assert bf16_launches == N_FRAMES - 1, "the bf16 stream did not run the kernel per segment"
-    assert combine_launches == N_FRAMES - 1, "the bf16 stream did not merge its split reads"
+    assert sum(bf16_merges) == N_FRAMES - 1, "the bf16 stream did not split its reads"
     drift = [float(np.abs(b - a).mean()) for a, b in zip(ka, ba)]
     agree0 = (bt[0].argmax(-1) == kt[0].argmax(-1)).mean()
     print(f"  bf16 vs fp32 stream, mean|dalpha| per frame: frame 0 {drift[0]:.4f} "
@@ -610,39 +662,42 @@ def main() -> int:
 
     print("phase 6: training at full width")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    timing.update(read_grad_phase(torch, ma, flush))
+    for key, row in read_grad_phase(torch, ma, flush).items():
+        timing[key].update(row)
     del flush
     train = train_phase(torch, ma, card)
     print(f"train_stage4_320 on {card}: {json.dumps(train)}")
 
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the bf16 stream's launches; every timed shape and dtype under
-    # "shapes", the other paths' launches beside
+    # "shapes", the other paths' launches beside.  A split read merges its
+    # splits in the same launch, in a cluster or through L2 (the Pallas
+    # kernel's K/V carry and _finish, :111-126).
     keys = ("max_abs_err", "rel_err", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    main_label = TIMED[0][4]
-    read = timing["bfloat16", main_label]
-    comb = timing["combine bfloat16", main_label]
+            "library_ms", "splits")
+    read = timing["bfloat16", TIMED[0][4]]
     src = "otvm_tpu_torch/kernels/csrc/memory_attn.cu"
     print(json.dumps({"kernels": [
         {"name": "memory_read", "route": "cuda", "source": src,
          "replaces": "otvm_tpu/kernels/memory_attn.py:134", "launches": bf16_launches,
+         **{key: read[key] for key in keys},
+         "cluster": [1, 1, read["cluster_blocks"]],
+         "merge": {"in": "split_epilogue (merge_splits: in a cluster through distributed "
+                         "shared memory, or through L2 after tile_barrier), the split read's "
+                         "epilogue",
+                   "replaces": "otvm_tpu/kernels/memory_attn.py:111-126",
+                   "cluster_and_l2_merge_launches": bf16_merges,
+                   "cluster_and_l2_merge_launches_fp32_stream": fp32_merges,
+                   "cluster_and_l2_merge_launches_train": {
+                       f"fp32 stage 4, {TRAIN_STEPS} steps": train["merges"],
+                       f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_merges"],
+                       f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_merges"]}},
+         "max_active_clusters": clusters,
          "launches_fp32_stream": fp32_launches,
          "launches_train": {f"fp32 stage 4, {TRAIN_STEPS} steps": train["launches"],
                             f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_launches"],
                             f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
-         **{key: read[key] for key in keys},
-         "shapes": {f"{d} {label}": row for (d, label), row in timing.items()
-                    if not d.startswith("combine")}},
-        {"name": "memory_combine", "route": "cuda", "source": src,
-         "replaces": "otvm_tpu/kernels/memory_attn.py:124", "launches": combine_launches,
-         "launches_fp32_stream": fp32_combine_launches,
-         "launches_train": {f"fp32 stage 4, {TRAIN_STEPS} steps": train["combine_launches"],
-                            f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_combine_launches"],
-                            f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_combine_launches"]},
-         **{key: comb[key] for key in keys},
-         "shapes": {f"{d[len('combine '):]} {label}": row for (d, label), row in timing.items()
-                    if d.startswith("combine")}}]}))
+         "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -44,9 +44,21 @@
 //     softmax overlaps the other's products.
 //   * The grid alone fills the card at 1088x1920 (128 blocks); at 512p it
 //     makes 16 blocks, so the wrapper splits the live K/V tiles across
-//     `splits` blocks, each writing (m, l, unnormalised acc) in fp32, and
-//     memory_combine merges them.  With splits = 1 the block writes out.
-//   * memory_read_f32tc (fp32): the same grid, split and partials, on
+//     `splits` <= 8 blocks per output tile, and the blocks merge their
+//     partial results (unnormalised fp32 O and (m, l)) in the same launch,
+//     each a share of the tile's rows (see split_epilogue).  Where the
+//     card holds one cluster a tile in one wave, the tile's splits are a
+//     thread-block cluster: each leaves its partial in its own shared
+//     memory, where Q and the ring were, and they merge through
+//     distributed shared memory.  Elsewhere (512p: the card holds only 15
+//     clusters of 8 blocks, and 16 tiles need 16) the grid is launched
+//     without clusters, all its blocks on the card at once, and the splits
+//     merge through a workspace in L2 after a barrier of the tile's blocks
+//     in device memory.  The Pallas kernel carries the partials in VMEM
+//     over its sequential K/V grid axis instead (_flash_kernel's scratch
+//     and _finish, otvm_tpu/kernels/memory_attn.py:111-126).  With splits
+//     = 1 the block writes out.
+//   * memory_read_f32tc (fp32): the same grid, split and merge, on
 //     mma.sync m16n8k8 in 3xTF32.  Each fp32 operand x is split as it is
 //     loaded into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
 //     as cvt.rna does, and a b is a_hi b_lo + a_lo b_hi + a_hi b_hi, small
@@ -74,15 +86,21 @@
 //     which costs issue slots beside the mma.syncs but no shared memory.
 // Times on the card beside these bounds: PERF.md (chip_smoke.py phase 3).
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int MAX_T = 256;   // bank slots
+namespace cg = cooperative_groups;
+
+constexpr int MAX_T = 256;      // bank slots
+constexpr int MAX_SPLITS = 8;   // blocks of an output tile; of a cluster, the portable size
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel (TMA ring, wgmma)
@@ -98,6 +116,21 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// A split block's partial result, in its shared memory from the aligned
+// start of Q (Q and the ring are free by then): O [BQ rows x CVT] fp32,
+// rows STRIDE floats apart, then (m, l) per row.  The padding keeps the
+// consumers' stores in their fragment layout free of bank conflicts: PAD 8
+// for wgmma's (8-byte stores, half a warp on four rows), 4 for mma.sync's
+// (16-byte stores, a quarter warp on two rows).
+template <int CVT, int PAD>
+struct MergeTile {
+    static constexpr int STRIDE = CVT + PAD;
+    static constexpr int ML_OFF = BQ * STRIDE * 4;
+    static constexpr int BYTES = ML_OFF + BQ * 8;
+};
+
 template <int CK, int CVT>
 struct Layout {
     static constexpr int CKB = CK < 64 ? CK : 64;   // key columns per TMA box (<= 128 bytes)
@@ -108,7 +141,9 @@ struct Layout {
     static constexpr int K_BYTES = BK * CK * 2;
     static constexpr int V_BYTES = BK * CVT * 2;    // CVT / 64 boxes of 64 x 64
     static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
-    static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;   // + alignment slack
+    using Merge = MergeTile<CVT, 8>;
+    // + alignment slack; at Ck = 32 and CVT = 256 the merge tile is the larger
+    static constexpr int SMEM = cmax(Q_BYTES + STAGES * STAGE_BYTES, Merge::BYTES) + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -277,11 +312,229 @@ __device__ __forceinline__ void named_bar_arrive(int id) {
     asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(CONSUMERS) : "memory");
 }
 
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+    uint2 packed;
+    packed.x = pack_bf16(x.x, x.y);
+    packed.y = pack_bf16(x.z, x.w);
+    *reinterpret_cast<uint2*>(p) = packed;
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+    *reinterpret_cast<float4*>(p) = x;
+}
+
+// A cluster launch is one cluster per (query tile, value tile, batch row):
+// cluster dims (1, 1, splits) over grid z = b * splits + split, so a
+// block's rank in its cluster is its split.  A launch where that fails
+// traps rather than merge the wrong blocks.  Checked by the consumers
+// before the merge: where the check sits moves ptxas's register choices
+// for the fp32 main loop, and there it ran fastest (PERF.md, PR 5).
+__device__ __forceinline__ void check_cluster(int split, int splits) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    if (cluster.block_rank() != (unsigned)split || cluster.num_blocks() != (unsigned)splits)
+        __trap();
+}
+
+// The splits' partial results as a cluster merge reads them: block s's
+// shared memory (MergeTile: O rows STRIDE floats apart, then (m, l) per
+// row), its own directly and its peers' through distributed shared
+// memory, which moves a fraction of what local shared memory or L2 does.
+template <int STRIDE>
+struct ClusterPartials {
+    float* o_s;
+    float2* ml_s;
+    int rank;
+    template <typename P>
+    __device__ __forceinline__ P* at(P* p, int s) const {
+        return s == rank ? p : cg::this_cluster().map_shared_rank(p, s);
+    }
+    __device__ __forceinline__ float2 ml(int s, int r) const { return *at(ml_s + r, s); }
+    __device__ __forceinline__ float4 o(int s, int r, int c) const {
+        return *reinterpret_cast<const float4*>(at(o_s + r * STRIDE + c, s));
+    }
+};
+
+// The splits' partial results as an L2 merge reads them: split s's O rows
+// of the tile at part_o + s * split_o (rows cv floats apart), its (m, l)
+// at part_ml + s * split_ml; loaded with ld.global.cg (L2: other blocks
+// wrote them).
+struct L2Partials {
+    const float* part_o;
+    const float2* part_ml;
+    long split_o, split_ml;
+    int cv;
+    __device__ __forceinline__ float2 ml(int s, int r) const {
+        return __ldcg(part_ml + s * split_ml + r);
+    }
+    __device__ __forceinline__ float4 o(int s, int r, int c) const {
+        return __ldcg(reinterpret_cast<const float4*>(part_o + s * split_o + (long)r * cv + c));
+    }
+};
+
+// The merge of a tile's `splits` partials, run by the 256 consumer threads
+// of each block once every split's partial is in place.  Block `split`
+// merges the tile's rows [split * 128 / splits, (split + 1) * 128 /
+// splits) below `rows` (the tile's rows inside HW):
+//     out[r, :] = sum_s w_s O_s[r, :] / sum_s w_s l_s,  w_s = 2^(m_s - M),
+//     M = max_s m_s,
+// each sum taken over s = 0 .. splits - 1 in order (combine_plain in
+// memory_attn.py is its plain version).  First one thread a row forms the
+// row's weights and 1 / sum_s w_s l_s into `w_row`; then every thread
+// takes 16 bytes of a row at a time, two chunks at once, with the loads of
+// all splits issued before the arithmetic.  A split with no live tile
+// holds m = -inf, l = 0, O = 0, and weighs 0.  `out` points at the tile's
+// first row and value column.
+template <int CVT, typename Partials, typename T>
+__device__ __forceinline__ void merge_splits(const Partials& in, int split, int splits, int rows,
+                                             T* out, int cv, int tid) {
+    __shared__ float w_row[BQ / 2][MAX_SPLITS + 1];   // w_s, then 1 / sum_s w_s l_s
+    const int r_lo = split * BQ / splits, r_hi = min((split + 1) * BQ / splits, rows);
+    if (tid < r_hi - r_lo) {
+        float2 ml[MAX_SPLITS];
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s)
+            if (s < splits) ml[s] = in.ml(s, r_lo + tid);
+        float m_max = -INFINITY;
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s)
+            if (s < splits) m_max = fmaxf(m_max, ml[s].x);
+        float den = 0.f;
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s)
+            if (s < splits) {
+                const float w = exp2f(ml[s].x - m_max);
+                w_row[tid][s] = w;
+                den += w * ml[s].y;
+            }
+        w_row[tid][MAX_SPLITS] = 1.f / den;
+    }
+    named_bar_sync(3);
+    constexpr int C4 = CVT / 4;   // 16-byte chunks of a row
+    constexpr int U = 2;          // chunks a thread has in flight
+    const int end = (r_hi - r_lo) * C4;
+    for (int base = tid; base < end; base += U * CONSUMERS) {
+        float4 a[U][MAX_SPLITS];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int idx = min(base + u * CONSUMERS, end - 1);
+#pragma unroll
+            for (int s = 0; s < MAX_SPLITS; ++s)
+                if (s < splits) a[u][s] = in.o(s, r_lo + idx / C4, idx % C4 * 4);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int idx = base + u * CONSUMERS;
+            if (idx >= end) break;
+            const float* w = w_row[idx / C4];
+            float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int s = 0; s < MAX_SPLITS; ++s)
+                if (s < splits) {
+                    sum.x += w[s] * a[u][s].x;
+                    sum.y += w[s] * a[u][s].y;
+                    sum.z += w[s] * a[u][s].z;
+                    sum.w += w[s] * a[u][s].w;
+                }
+            const float inv = w[MAX_SPLITS];
+            store4(out + (long)(r_lo + idx / C4) * cv + idx % C4 * 4,
+                   make_float4(sum.x * inv, sum.y * inv, sum.z * inv, sum.w * inv));
+        }
+    }
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// A sense-reversing barrier of a tile's `splits` blocks in device memory,
+// run by one thread of each once its block's partial is stored: bar[0]
+// counts arrivals, bar[1] counts completed barriers.  Each reads the count
+// of completed barriers, arrives after a release fence, and waits for the
+// count to move; the last to arrive sets bar[0] back to 0 (for the next
+// launch) before it moves it.  Only a launch whose whole grid the card
+// holds at once may wait so (launch_geometry ensures it); a wait of more
+// than 2^32 cycles (~2 s) traps instead of hanging the card.
+__device__ __forceinline__ void tile_barrier(unsigned* bar, int splits) {
+    const unsigned done = ld_acquire(bar + 1);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == (unsigned)splits - 1) {
+        atomicExch(bar, 0u);
+        __threadfence();
+        atomicAdd(bar + 1, 1u);
+    } else {
+        const long long start = clock64();
+        while (ld_acquire(bar + 1) == done) {
+            __nanosleep(32);
+            if (clock64() - start > (1ll << 32)) __trap();
+        }
+    }
+    __threadfence();
+}
+
+// %ctaid.<axis>, read anew where it is used: the asm is volatile, so the
+// compiler cannot keep an index computed before the main loop live in a
+// register across it (the fp32 consumers use all 240 of theirs there).
+template <int AXIS>
+__device__ __forceinline__ int block_index() {
+    int v;
+    if (AXIS == 0) asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(v));
+    else if (AXIS == 1) asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(v));
+    else asm volatile("mov.u32 %0, %%ctaid.z;\n" : "=r"(v));
+    return v;
+}
+
+// The epilogue of a split block (splits > 1), after its consumers' last
+// tile: `store(o, stride, ml, rows)` puts the block's O (fp32,
+// unnormalised, rows `stride` floats apart) at o and its (m, l) at ml, the
+// rows below `rows`; then the tile's splits merge.  In a cluster launch
+// (blocks == splits) the partial goes to the block's own shared memory (Q
+// and the ring are free: every consumer is past its last tile, so every
+// TMA load has landed), and the cluster merges through distributed shared
+// memory between two cluster barriers, which the producer warpgroup meets
+// too.  Otherwise (blocks == 1) it goes to `part` in device memory
+// ([splits, B, HW, Cv] fp32, then (m, l) [splits, B, HW]) and the tile's
+// blocks meet at tile_barrier on `bars` (two counters per tile) before
+// they merge from L2.  Block indices are read anew here (block_index).
+template <int CVT, int STRIDE, typename T, typename Store>
+__device__ __forceinline__ void split_epilogue(uint8_t* tile_s, Store store, int hw, int cv,
+                                               int splits, int blocks, float* part,
+                                               unsigned* bars, T* out, int tid) {
+    const int x = block_index<0>(), y = block_index<1>(), z = block_index<2>();
+    const int b = z / splits, split = z % splits, q0 = x * BQ;
+    const long tile = (long)b * hw + q0;   // the tile's first row of B * HW
+    T* out_t = out + tile * cv + y * CVT;
+    if (blocks > 1) {
+        check_cluster(split, splits);
+        named_bar_sync(3);   // every consumer past its last tile
+        float* o_s = reinterpret_cast<float*>(tile_s);
+        float2* ml_s = reinterpret_cast<float2*>(tile_s + BQ * STRIDE * 4);
+        store(o_s, STRIDE, ml_s, BQ);
+        cg::this_cluster().sync();
+        merge_splits<CVT>(ClusterPartials<STRIDE>{o_s, ml_s, split}, split, splits,
+                          min(BQ, hw - q0), out_t, cv, tid);
+        cg::this_cluster().sync();   // no block's shared memory goes while a peer reads it
+        return;
+    }
+    const long split_ml = (long)(gridDim.z / splits) * hw, split_o = split_ml * cv;
+    float* part_ml = part + splits * split_o;
+    const L2Partials in{part + tile * cv + y * CVT, reinterpret_cast<float2*>(part_ml) + tile,
+                        split_o, split_ml, cv};
+    store(part + split * split_o + tile * cv + y * CVT, cv,
+          reinterpret_cast<float2*>(part_ml) + split * split_ml + tile, min(BQ, hw - q0));
+    named_bar_sync(3);   // every consumer's partial stores issued
+    if (tid == 0) tile_barrier(bars + 2 * ((long)(b * gridDim.y + y) * gridDim.x + x), splits);
+    named_bar_sync(3);
+    merge_splits<CVT>(in, split, splits, min(BQ, hw - q0), out_t, cv, tid);
+}
+
 // Grid: (HW / 128 query tiles, Cv / CVT value tiles, B * splits).  Block
 // split s of batch row b reads live tiles [s L / splits, (s + 1) L / splits)
-// of the L live tiles.  splits == 1: writes out (bf16).  splits > 1: writes
-// acc_part [splits, B, HW, Cv] (unnormalised, fp32) and ml_part
-// [splits, B, HW] (running max in log2 units, sum of p), for memory_combine.
+// of the L live tiles.  splits == 1: writes out.  splits > 1: each block,
+// past its last tile, hands its unnormalised O and its (m, l) (running
+// max in log2 units, sum of p) to split_epilogue, which merges the tile's
+// splits, in its cluster (blocks == splits) or through `part` and `bars`
+// (blocks == 1), and writes out.
 //
 // Each consumer warpgroup pipelines its tiles: in the turn of tile j it
 // issues S_j = Q K_j^T and O += P_(j-1) V_(j-1) together, then computes the
@@ -292,8 +545,8 @@ template <int CK, int CVT>
 __global__ void __launch_bounds__(THREADS, 1)
 memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ slot_mask,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ acc_part,
-               float2* __restrict__ ml_part, int hw, int t, int cv, int splits, float scale_log2) {
+               __nv_bfloat16* __restrict__ out, int hw, int t, int cv, int splits, int blocks,
+               float* __restrict__ part, unsigned* __restrict__ bars, float scale_log2) {
     using L = Layout<CK, CVT>;
     extern __shared__ uint8_t smem_raw[];
     __shared__ uint64_t full_bar[STAGES];
@@ -312,7 +565,6 @@ memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     const int cv0 = blockIdx.y * CVT;
     const int b = blockIdx.z / splits;
     const int split = blockIdx.z % splits;
-    const int batch = gridDim.z / splits;
     const int kv_len = t * hw;
 
     if (tid == 0) {
@@ -368,6 +620,10 @@ memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
                     phase ^= 1;
                 }
             }
+        }
+        if (blocks > 1) {   // the cluster merge's two barriers count every thread
+            cg::this_cluster().sync();
+            cg::this_cluster().sync();
         }
     } else {
         // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
@@ -536,27 +792,35 @@ memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
             l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
             l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
         }
+        if (splits == 1) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int row = q0 + 64 * wg + rq + 8 * i;
-            if (row >= hw) continue;
-            if (splits == 1) {
+            for (int i = 0; i < 2; ++i) {
+                const int row = q0 + 64 * wg + rq + 8 * i;
+                if (row >= hw) continue;
                 const float inv = 1.f / l_run[i];
                 __nv_bfloat16* ob = out + ((long)b * hw + row) * cv + cv0 + cq;
 #pragma unroll
                 for (int n = 0; n < CVT / 8; ++n)
                     *reinterpret_cast<uint32_t*>(ob + 8 * n) =
                         pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
-            } else {
-                const long idx = ((long)split * batch + b) * hw + row;
-                float* ab = acc_part + idx * cv + cv0 + cq;
-#pragma unroll
-                for (int n = 0; n < CVT / 8; ++n)
-                    *reinterpret_cast<float2*>(ab + 8 * n) =
-                        make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
-                if (blockIdx.y == 0 && lane % 4 == 0)
-                    ml_part[idx] = make_float2(m_run[i], l_run[i]);
             }
+        } else {
+            using M = typename L::Merge;
+            split_epilogue<CVT, M::STRIDE>(
+                smem_raw + (q_s - smem_u32(smem_raw)),
+                [&](float* to, int stride, float2* ml_to, int rows) {
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const int row = 64 * wg + rq + 8 * i;
+                        if (row >= rows) continue;
+#pragma unroll
+                        for (int n = 0; n < CVT / 8; ++n)
+                            *reinterpret_cast<float2*>(to + row * stride + 8 * n + cq) =
+                                make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+                        if (lane % 4 == 0) ml_to[row] = make_float2(m_run[i], l_run[i]);
+                    }
+                },
+                hw, cv, splits, blocks, part, bars, out, tid);
         }
     }
 }
@@ -585,7 +849,9 @@ struct F32Layout {
     static constexpr int KV_BOX = F_BK * 128;
     static constexpr int K_BYTES = CK / 32 * KV_BOX;
     static constexpr int STAGE_BYTES = K_BYTES + CVT / 32 * KV_BOX;
-    static constexpr int SMEM = Q_BYTES + F_STAGES * STAGE_BYTES + 1024;   // + alignment slack
+    using Merge = MergeTile<CVT, 4>;
+    // + alignment slack; at Ck = 32 and CVT = 256 the merge tile is the larger
+    static constexpr int SMEM = cmax(Q_BYTES + F_STAGES * STAGE_BYTES, Merge::BYTES) + 1024;
 };
 
 // byte offset of 16-byte chunk `chunk` of row `row` in a swizzled box
@@ -625,7 +891,7 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi, const
     mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 
-// Grid, split, outputs and warpgroups as memory_read_tc, in fp32.  Warp w
+// Grid, split, merge and warpgroups as memory_read_tc, in fp32.  Warp w
 // of the two consumer warpgroups owns query rows q0 + 16 w .. + 15 and
 // reads every tile of its split.  Lane (g, tq) = (lane / 4, lane % 4)
 // holds rows g and g + 8 of its warp's 16, in the m16n8k8 fragment
@@ -638,9 +904,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ slot_mask,
-                  float* __restrict__ out, float* __restrict__ acc_part,
-                  float2* __restrict__ ml_part, int hw, int t, int cv, int splits,
-                  float scale_log2) {
+                  float* __restrict__ out, int hw, int t, int cv, int splits, int blocks,
+                  float* __restrict__ part, unsigned* __restrict__ bars, float scale_log2) {
     using L = F32Layout<CK, CVT>;
     extern __shared__ uint8_t smem_raw[];
     __shared__ uint64_t full_bar[F_STAGES];
@@ -659,7 +924,6 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
     const int cv0 = blockIdx.y * CVT;
     const int b = blockIdx.z / splits;
     const int split = blockIdx.z % splits;
-    const int batch = gridDim.z / splits;
     const int kv_len = t * hw;
 
     if (tid == 0) {
@@ -718,6 +982,10 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
                     phase ^= 1;
                 }
             }
+        }
+        if (blocks > 1) {   // the cluster merge's two barriers count every thread
+            cg::this_cluster().sync();
+            cg::this_cluster().sync();
         }
         return;
     }
@@ -890,65 +1158,44 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
         l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
         l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
     }
+    if (splits == 1) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int row = q0 + r0 + 8 * i;
-        if (row >= hw) continue;
-        const bool whole = splits == 1;
-        const float inv = whole ? 1.f / l_run[i] : 1.f;
-        const long idx = ((long)split * batch + b) * hw + row;
-        float* ob = (whole ? out + ((long)b * hw + row) * cv : acc_part + idx * cv) + cv0 + 8 * tq;
+        for (int i = 0; i < 2; ++i) {
+            const int row = q0 + r0 + 8 * i;
+            if (row >= hw) continue;
+            const float inv = 1.f / l_run[i];
+            float* ob = out + ((long)b * hw + row) * cv + cv0 + 8 * tq;
 #pragma unroll
-        for (int c = 0; c < CVT / 32; ++c)
+            for (int c = 0; c < CVT / 32; ++c)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const float* oc = o + 16 * c + 2 * i + e;
-                *reinterpret_cast<float4*>(ob + 32 * c + 4 * e) =
-                    make_float4(oc[0] * inv, oc[4] * inv, oc[8] * inv, oc[12] * inv);
-            }
-        if (!whole && blockIdx.y == 0 && tq == 0) ml_part[idx] = make_float2(m_run[i], l_run[i]);
-    }
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-    uint2 packed;
-    packed.x = pack_bf16(x.x, x.y);
-    packed.y = pack_bf16(x.z, x.w);
-    *reinterpret_cast<uint2*>(p) = packed;
-}
-__device__ __forceinline__ void store4(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-}
-
-// out[r, :] = sum_s 2^(m_s - M) acc_s[r, :] / sum_s 2^(m_s - M) l_s, M = max_s m_s.
-// One block of 128 threads per row of B * HW; 4 columns a thread per pass.
-template <typename T>
-__global__ void __launch_bounds__(128)
-memory_combine(const float* __restrict__ acc_part, const float2* __restrict__ ml_part,
-               T* __restrict__ out, int rows, int cv, int splits) {
-    const long row = blockIdx.x;
-    float m_max = -INFINITY;
-    for (int s = 0; s < splits; ++s) m_max = fmaxf(m_max, ml_part[s * (long)rows + row].x);
-    float den = 0.f;
-    for (int s = 0; s < splits; ++s) {
-        const float2 ml = ml_part[s * (long)rows + row];
-        den += exp2f(ml.x - m_max) * ml.y;
-    }
-    const float inv = 1.f / den;
-    for (int c = threadIdx.x * 4; c < cv; c += blockDim.x * 4) {
-        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int s = 0; s < splits; ++s) {
-            const long idx = s * (long)rows + row;
-            const float w = exp2f(ml_part[idx].x - m_max);
-            const float4 a = *reinterpret_cast<const float4*>(acc_part + idx * cv + c);
-            sum.x += w * a.x;
-            sum.y += w * a.y;
-            sum.z += w * a.z;
-            sum.w += w * a.w;
+                for (int e = 0; e < 2; ++e) {
+                    const float* oc = o + 16 * c + 2 * i + e;
+                    *reinterpret_cast<float4*>(ob + 32 * c + 4 * e) =
+                        make_float4(oc[0] * inv, oc[4] * inv, oc[8] * inv, oc[12] * inv);
+                }
         }
-        store4(out + row * cv + c,
-               make_float4(sum.x * inv, sum.y * inv, sum.z * inv, sum.w * inv));
+        return;
     }
+    using M = typename L::Merge;
+    split_epilogue<CVT, M::STRIDE>(
+        smem_raw + (q_s - smem_u32(smem_raw)),
+        [&](float* to, int stride, float2* ml_to, int rows) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const int row = r0 + 8 * i;
+                if (row >= rows) continue;
+#pragma unroll
+                for (int c = 0; c < CVT / 32; ++c)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float* oc = o + 16 * c + 2 * i + e;
+                        *reinterpret_cast<float4*>(to + row * stride + 32 * c + 8 * tq + 4 * e) =
+                            make_float4(oc[0], oc[4], oc[8], oc[12]);
+                    }
+                if (tq == 0) ml_to[row] = make_float2(m_run[i], l_run[i]);
+            }
+        },
+        hw, cv, splits, blocks, part, bars, out, tid);
 }
 
 // cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
@@ -987,130 +1234,182 @@ bool encode_map(CUtensorMap* map, const void* ptr, int cols, long rows, int batc
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// How a launch splits each output tile: `splits` blocks, as one cluster a
+// tile (blocks == splits) or without clusters (blocks == 1), then with
+// split_epilogue's workspace `part` and `bars`.
+struct Split {
+    int splits, blocks;
+    float* part;
+    unsigned* bars;
+};
+
+// Sets the kernel's shared memory and fills `cfg` for a grid with clusters
+// of `blocks` blocks (1: no cluster).
+template <typename Kernel>
+cudaError_t read_config(Kernel kernel, int smem, dim3 grid, int blocks, cudaStream_t stream,
+                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster) {
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = 1;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = blocks;
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = blocks > 1 ? 1 : 0;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// A refused call leaves its error as the last one: clear it, so that the
+// next launch's cudaGetLastError() reports only its own.
+cudaError_t cleared(cudaError_t err) {
+    if (err != cudaSuccess) cudaGetLastError();
+    return err;
+}
+
+// Launches `kernel` with its arguments up to `out`, then (hw, t, cv, the
+// split, scale_log2).
+template <typename Kernel, typename T>
+cudaError_t launch_read(Kernel kernel, int smem, int cvt, const CUtensorMap* maps,
+                        const void* mask, T* out, int batch, int hw, int t, int cv, Split sp,
+                        float scale_log2, cudaStream_t stream) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute cluster;
+    const dim3 grid((hw + BQ - 1) / BQ, cv / cvt, batch * sp.splits);
+    const uint8_t* mask_p = static_cast<const uint8_t*>(mask);
+    void* args[] = {const_cast<CUtensorMap*>(&maps[0]), const_cast<CUtensorMap*>(&maps[1]),
+                    const_cast<CUtensorMap*>(&maps[2]), &mask_p, &out, &hw, &t, &cv,
+                    &sp.splits, &sp.blocks, &sp.part, &sp.bars, &scale_log2};
+    cudaError_t err = read_config(kernel, smem, grid, sp.blocks, stream, cfg, cluster);
+    if (err == cudaSuccess) err = cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
+    return err == cudaSuccess ? cudaGetLastError() : cleared(err);
+}
+
+// How many clusters of `blocks` blocks of the kernel the card holds at
+// once; for blocks == 1, how many blocks.
+template <typename Kernel>
+cudaError_t max_clusters(Kernel kernel, int smem, int blocks, int* count) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute cluster;
+    cudaError_t err = read_config(kernel, smem, dim3(1, 1, blocks), blocks, 0, cfg, cluster);
+    if (err == cudaSuccess && blocks > 1)
+        err = cudaOccupancyMaxActiveClusters(count, (const void*)kernel, &cfg);
+    if (err == cudaSuccess && blocks == 1) {
+        int per_sm = 0, sms = 0, device = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+        if (err == cudaSuccess) err = cudaGetDevice(&device);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        *count = per_sm * sms;
+    }
+    return cleared(err);
+}
+
 template <int CK, int CVT>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* mask, void* out,
-                      void* acc_part, void* ml_part, int batch, int hw, int t, int cv,
-                      int splits, cudaStream_t stream) {
+                      int batch, int hw, int t, int cv, Split sp, cudaStream_t stream) {
     using L = Layout<CK, CVT>;
     const CUtensorMapSwizzle swz =
         L::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-    CUtensorMap q_map, k_map, v_map;
-    if (!encode_map(&q_map, q, CK, hw, batch, L::CKB, swz) ||
-        !encode_map(&k_map, k, CK, (long)t * hw, batch, L::CKB, swz) ||
-        !encode_map(&v_map, v, cv, (long)t * hw, batch, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    CUtensorMap maps[3];
+    if (!encode_map(&maps[0], q, CK, hw, batch, L::CKB, swz) ||
+        !encode_map(&maps[1], k, CK, (long)t * hw, batch, L::CKB, swz) ||
+        !encode_map(&maps[2], v, cv, (long)t * hw, batch, 64, CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorInvalidValue;
-    auto kernel = memory_read_tc<CK, CVT>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((hw + BQ - 1) / BQ, cv / CVT, batch * splits);
-    kernel<<<grid, THREADS, L::SMEM, stream>>>(
-        q_map, k_map, v_map, static_cast<const uint8_t*>(mask),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(acc_part),
-        static_cast<float2*>(ml_part), hw, t, cv, splits, LOG2E / sqrtf((float)CK));
-    return cudaGetLastError();
+    return launch_read(memory_read_tc<CK, CVT>, L::SMEM, CVT, maps, mask,
+                       static_cast<__nv_bfloat16*>(out), batch, hw, t, cv, sp,
+                       LOG2E / sqrtf((float)CK), stream);
 }
 
 template <int CK, int CVT>
 cudaError_t launch_f32tc(const void* q, const void* k, const void* v, const void* mask, void* out,
-                         void* acc_part, void* ml_part, int batch, int hw, int t, int cv,
-                         int splits, cudaStream_t stream) {
+                         int batch, int hw, int t, int cv, Split sp, cudaStream_t stream) {
     using L = F32Layout<CK, CVT>;
     const CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_128B;
     const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-    CUtensorMap q_map, k_map, v_map;
-    if (!encode_map(&q_map, q, CK, hw, batch, 32, swz, f32, 64) ||
-        !encode_map(&k_map, k, CK, (long)t * hw, batch, 32, swz, f32, F_BK) ||
-        !encode_map(&v_map, v, cv, (long)t * hw, batch, 32, swz, f32, F_BK))
+    CUtensorMap maps[3];
+    if (!encode_map(&maps[0], q, CK, hw, batch, 32, swz, f32, 64) ||
+        !encode_map(&maps[1], k, CK, (long)t * hw, batch, 32, swz, f32, F_BK) ||
+        !encode_map(&maps[2], v, cv, (long)t * hw, batch, 32, swz, f32, F_BK))
         return cudaErrorInvalidValue;
-    auto kernel = memory_read_f32tc<CK, CVT>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((hw + BQ - 1) / BQ, cv / CVT, batch * splits);
-    kernel<<<grid, THREADS, L::SMEM, stream>>>(
-        q_map, k_map, v_map, static_cast<const uint8_t*>(mask), static_cast<float*>(out),
-        static_cast<float*>(acc_part), static_cast<float2*>(ml_part), hw, t, cv, splits,
-        LOG2E / sqrtf((float)CK));
-    return cudaGetLastError();
+    return launch_read(memory_read_f32tc<CK, CVT>, L::SMEM, CVT, maps, mask,
+                       static_cast<float*>(out), batch, hw, t, cv, sp, LOG2E / sqrtf((float)CK),
+                       stream);
 }
 
-bool read_args_ok(void* acc_part, void* ml_part, int batch, int hw, int t, int cv, int splits) {
+bool read_args_ok(int batch, int hw, int t, int cv, const Split& sp) {
+    const bool workspace = sp.part != nullptr && sp.bars != nullptr;
+    const bool split_ok = sp.blocks == sp.splits || (sp.blocks == 1 && workspace);
     return batch > 0 && hw > 0 && t > 0 && t <= MAX_T && cv > 0 && cv % 128 == 0 &&
-           splits > 0 && (long)batch * splits <= 65535 && (long)t * hw <= (1l << 31) - BK &&
-           (splits == 1 || (acc_part != nullptr && ml_part != nullptr));
+           sp.splits > 0 && sp.splits <= MAX_SPLITS && split_ok &&
+           (long)batch * sp.splits <= 65535 && (long)t * hw <= (1l << 31) - BK;
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// fn(Int<Ck>, Int<CVT>) for the instantiated widths: Ck 32 or 128; CVT
+// 256, or 128 where Cv is not a multiple of 256.
+template <typename Fn>
+cudaError_t with_widths(int ck, int cv, Fn fn) {
+    const bool wide = cv % 256 == 0;
+    switch (ck) {
+        case 32: return wide ? fn(Int<32>(), Int<256>()) : fn(Int<32>(), Int<128>());
+        case 128: return wide ? fn(Int<128>(), Int<256>()) : fn(Int<128>(), Int<128>());
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 // q [B, HW, Ck], k [B, T*HW, Ck], v [B, T*HW, Cv], mask [B, T] uint8, out
 // [B, HW, Cv]; all contiguous fp32 on one device, 16-byte aligned.  Ck in
-// {32, 128}, Cv a multiple of 128, T <= 256.  splits == 1: writes out.
-// splits > 1: writes acc_part [splits, B, HW, Cv] fp32 and ml_part
-// [splits, B, HW, 2] fp32 for otvm_memory_combine; out is unused.  Launches
-// on `stream`, returns cudaGetLastError().
+// {32, 128}, Cv a multiple of 128, T <= 256.  splits <= 8 blocks per output
+// tile: blocks == splits launches one cluster a tile (a size the card
+// holds: otvm_memory_read_max_clusters); blocks == 1 with splits > 1 merges
+// through `part`, an fp32 workspace of splits * B * HW * (Cv + 2) floats,
+// and `bars`, 2 * B * ceil(HW / 128) * (Cv / CVT) uint32 counters (CVT =
+// 256, or 128 where Cv is not a multiple of 256), 0 before the first
+// launch (launches leave them fit for the next), and needs the whole grid
+// on the card at once.  Launches on `stream`, returns the launch's error.
 extern "C" int otvm_memory_read_f32(const void* q, const void* k, const void* v,
-                                    const void* mask, void* out, void* acc_part, void* ml_part,
-                                    int batch, int hw, int t, int ck, int cv, int splits,
+                                    const void* mask, void* out, int batch, int hw, int t, int ck,
+                                    int cv, int splits, int blocks, void* part, void* bars,
                                     void* stream) {
-    if (!read_args_ok(acc_part, ml_part, batch, hw, t, cv, splits))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool wide = cv % 256 == 0;
-    switch (ck) {
-        case 32:
-            return (int)(wide ? launch_f32tc<32, 256>(q, k, v, mask, out, acc_part, ml_part,
-                                                      batch, hw, t, cv, splits, s)
-                              : launch_f32tc<32, 128>(q, k, v, mask, out, acc_part, ml_part,
-                                                      batch, hw, t, cv, splits, s));
-        case 128:
-            return (int)(wide ? launch_f32tc<128, 256>(q, k, v, mask, out, acc_part, ml_part,
-                                                       batch, hw, t, cv, splits, s)
-                              : launch_f32tc<128, 128>(q, k, v, mask, out, acc_part, ml_part,
-                                                       batch, hw, t, cv, splits, s));
-        default: return (int)cudaErrorInvalidValue;
-    }
+    const Split sp{splits, blocks, static_cast<float*>(part), static_cast<unsigned*>(bars)};
+    if (!read_args_ok(batch, hw, t, cv, sp)) return (int)cudaErrorInvalidValue;
+    return (int)with_widths(ck, cv, [&](auto ck_, auto cvt) {
+        return launch_f32tc<decltype(ck_)::value, decltype(cvt)::value>(
+            q, k, v, mask, out, batch, hw, t, cv, sp, static_cast<cudaStream_t>(stream));
+    });
 }
 
-// The same in bf16, on the tensor cores, 16-byte aligned.  splits == 1:
-// writes out.  splits > 1: writes acc_part [splits, B, HW, Cv] fp32 and
-// ml_part [splits, B, HW, 2] fp32 for otvm_memory_combine; out is unused.
+// The same in bf16, on the tensor cores, 16-byte aligned.
 extern "C" int otvm_memory_read_bf16(const void* q, const void* k, const void* v,
-                                     const void* mask, void* out, void* acc_part, void* ml_part,
-                                     int batch, int hw, int t, int ck, int cv, int splits,
+                                     const void* mask, void* out, int batch, int hw, int t, int ck,
+                                     int cv, int splits, int blocks, void* part, void* bars,
                                      void* stream) {
-    if (!read_args_ok(acc_part, ml_part, batch, hw, t, cv, splits))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool wide = cv % 256 == 0;
-    switch (ck) {
-        case 32:
-            return (int)(wide ? launch_tc<32, 256>(q, k, v, mask, out, acc_part, ml_part, batch,
-                                                   hw, t, cv, splits, s)
-                              : launch_tc<32, 128>(q, k, v, mask, out, acc_part, ml_part, batch,
-                                                   hw, t, cv, splits, s));
-        case 128:
-            return (int)(wide ? launch_tc<128, 256>(q, k, v, mask, out, acc_part, ml_part, batch,
-                                                    hw, t, cv, splits, s)
-                              : launch_tc<128, 128>(q, k, v, mask, out, acc_part, ml_part, batch,
-                                                    hw, t, cv, splits, s));
-        default: return (int)cudaErrorInvalidValue;
-    }
+    const Split sp{splits, blocks, static_cast<float*>(part), static_cast<unsigned*>(bars)};
+    if (!read_args_ok(batch, hw, t, cv, sp)) return (int)cudaErrorInvalidValue;
+    return (int)with_widths(ck, cv, [&](auto ck_, auto cvt) {
+        return launch_tc<decltype(ck_)::value, decltype(cvt)::value>(
+            q, k, v, mask, out, batch, hw, t, cv, sp, static_cast<cudaStream_t>(stream));
+    });
 }
 
-// Merges the reads' partials: acc_part [splits, rows, cv], ml_part
-// [splits, rows, 2] fp32 -> out [rows, cv], fp32 if fp32_out else bf16
-// (rows = B * HW).
-extern "C" int otvm_memory_combine(const void* acc_part, const void* ml_part, void* out,
-                                   int rows, int cv, int splits, int fp32_out, void* stream) {
-    if (rows <= 0 || cv <= 0 || cv % 4 != 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-    const float* acc = static_cast<const float*>(acc_part);
-    const float2* ml = static_cast<const float2*>(ml_part);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (fp32_out)
-        memory_combine<<<rows, 128, 0, s>>>(acc, ml, static_cast<float*>(out), rows, cv, splits);
-    else
-        memory_combine<<<rows, 128, 0, s>>>(acc, ml, static_cast<__nv_bfloat16*>(out), rows, cv,
-                                            splits);
-    return (int)cudaGetLastError();
+// *count = the most clusters of `blocks` (2..8) blocks of the read kernel
+// for (fp32 or bf16, Ck, Cv) that the current card holds at once
+// (cudaOccupancyMaxActiveClusters), or for blocks == 1 the most blocks;
+// returns the query's error.
+extern "C" int otvm_memory_read_max_clusters(int fp32, int ck, int cv, int blocks, int* count) {
+    if (blocks < 1 || blocks > MAX_SPLITS || cv <= 0 || cv % 128 != 0 || count == nullptr)
+        return (int)cudaErrorInvalidValue;
+    return (int)with_widths(ck, cv, [&](auto ck_, auto cvt) {
+        constexpr int CK = decltype(ck_)::value, CVT = decltype(cvt)::value;
+        return fp32 ? max_clusters(memory_read_f32tc<CK, CVT>, F32Layout<CK, CVT>::SMEM, blocks,
+                                   count)
+                    : max_clusters(memory_read_tc<CK, CVT>, Layout<CK, CVT>::SMEM, blocks, count);
+    });
 }

@@ -7,9 +7,12 @@ the bound on an H100 and the design.  Both dtypes run on the tensor cores,
 with K/V tiles brought in by TMA: bf16 on wgmma, fp32 on mma.sync in
 3xTF32 (each operand split into two TF32 halves, three products per
 product: fp32's accuracy).  Where the grid alone would leave the card
-idle, the live K/V tiles are split across blocks, and `memory_combine`
-merges the blocks' partial results.  The library is compiled with nvcc for
-sm_90a, with a plain C entry, on first use, into build/ at the root of the
+idle, the live K/V tiles are split across up to 8 blocks per output
+tile, which merge their partial results in the same launch: as one
+thread-block cluster a tile, through each other's shared memory, where
+the card holds those clusters in one wave; else through a workspace in
+L2, after a barrier of the tile's blocks.  The library is compiled with nvcc for sm_90a,
+with a plain C entry, on first use, into build/ at the root of the
 checkout, and loaded with ctypes.
 
 `memory_read` takes the plain version for tensors on the CPU and the
@@ -18,10 +21,11 @@ falls back.  Where an input requires grad (training), it goes through
 `MemoryRead`, an autograd Function: the same forward, and as backward
 `memory_read_vjp_plain`, the einsum VJP of the JAX package's custom VJP
 (`_flash_bwd`; the JAX package has no backward kernel either).  `launches`
-counts memory-read kernel launches and `combine_launches` combine kernel
-launches (and nothing else), so a run can show that its main path went
-through them.  `memory_read_tf32_plain` emulates the fp32 kernel's
-tensor-core arithmetic on any device.
+counts memory-read kernel launches and `cluster_launches` those of them
+that were split over clusters (and nothing else), `l2_merge_launches`
+those split and merged through L2, so a run can show that
+its main path went through them.  `memory_read_tf32_plain` emulates the
+fp32 kernel's tensor-core arithmetic on any device.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -48,11 +52,23 @@ _KEY_DIMS = (32, 128)   # the real model and the scale=4 test model
 _CV_SLICE = 128
 _MAX_SLOTS = 256
 BQ = 128                # query rows per block
-BK = 64                 # positions per K/V tile of the bf16 kernel (the split rule's unit)
-_MAX_SPLITS = 16
+BK = 64                 # positions per K/V tile of the bf16 kernel
+F_BK = 32               # positions per K/V tile of the fp32 kernel
+_MAX_SPLITS = 8         # blocks of an output tile; of a cluster, the portable size
+# The split rule gives each split at least this many of its dtype's K/V
+# tiles: the sweep of tools/bench_memory_read.py on an H100 found no shape
+# where 2 tiles a split lose to fewer splits (the training shapes' bf16 T=1
+# read, 7 tiles, is fastest at 3 splits; PERF.md).
+MIN_TILES_PER_SPLIT = 2
+# At equal split counts the cluster merge beats the L2 merge at the
+# training shapes; the rule takes the L2 merge's larger split count over
+# the largest one-cluster count only where it cuts at least this many of
+# the dtype's K/V tiles off the longest split (the same sweep).
+L2_MERGE_TILES = {torch.bfloat16: 2, torch.float32: 1}
 
 launches = 0            # memory-read kernel launches since the last reset
-combine_launches = 0    # combine kernel launches since the last reset
+cluster_launches = 0    # of them, split launches merged in a cluster
+l2_merge_launches = 0   # of them, split launches merged through L2
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""          # nvcc's output (registers, shared memory, spills)
 library_path: Optional[Path] = None
@@ -96,10 +112,11 @@ def build() -> ctypes.CDLL:
     build_log = log.read_text()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.otvm_memory_read_f32.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-    lib.otvm_memory_read_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-    lib.otvm_memory_combine.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    for fn in (lib.otvm_memory_read_f32, lib.otvm_memory_read_bf16, lib.otvm_memory_combine):
+    lib.otvm_memory_read_f32.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 3
+    lib.otvm_memory_read_bf16.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 3
+    lib.otvm_memory_read_max_clusters.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    for fn in (lib.otvm_memory_read_f32, lib.otvm_memory_read_bf16,
+               lib.otvm_memory_read_max_clusters):
         fn.restype = i32
     _lib, library_path = lib, so
     return lib
@@ -114,19 +131,57 @@ def value_tile(cv: int) -> int:
     return 256 if cv % 256 == 0 else 128
 
 
-def launch_geometry(b: int, hw: int, t: int, cv: int, sms: int = 132,
-                    _splits: Optional[int] = None) -> Tuple[int, int, int]:
-    """(query tiles, value tiles, splits) of one launch, bf16 or fp32.  The
-    split count fills the card's `sms` with one block each, and gives each
-    split at least 4 of the bank's 64-position K/V tiles; `_splits`
-    overrides it (a hook for the card tests and the split benchmark)."""
+def tile_positions(dtype: torch.dtype) -> int:
+    """Memory positions per K/V tile of the kernel for `dtype` (bf16 64,
+    fp32 32): the split rule's unit."""
+    return BK if dtype == torch.bfloat16 else F_BK
+
+
+def launch_geometry(b: int, hw: int, t: int, cv: int, dtype: torch.dtype,
+                    max_clusters: Mapping[int, int], _splits: Optional[int] = None,
+                    _cluster: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(query tiles, value tiles, splits, blocks) of one launch of the
+    kernel for `dtype`: each output tile (query tile, value tile, batch
+    row) is read by `splits` blocks, merged inside the kernel: as one
+    cluster a tile (blocks = splits), or without clusters through L2
+    (blocks = 1), which needs the grid's tiles x splits blocks on the card
+    at once.  `max_clusters` is the card's figure for this kernel
+    (`max_active_clusters`): {n: clusters of n blocks it holds at once; 1:
+    blocks}.  The split count is the largest up to 8 that gives each split
+    at least MIN_TILES_PER_SPLIT of the dtype's K/V tiles of the bank and
+    whose grid the card holds at once, merged in one cluster a tile where
+    the card holds the tiles' clusters at once, else through L2; but the
+    largest count that merges in a cluster where the L2 one cuts fewer than
+    L2_MERGE_TILES[dtype] tiles off the longest split.  `_splits` (and
+    `_cluster`: the splits, or 1) override them, for the card tests and
+    the split benchmark, and raise above 8, where the card holds no
+    cluster of that size, or where the L2 merge's grid does not fit."""
     q_tiles = -(-hw // BQ)
     cv_tiles = cv // value_tile(cv)
-    splits = _splits
-    if splits is None:
-        n_tiles = -(-t * hw // BK)
-        splits = min(sms // (q_tiles * cv_tiles * b), n_tiles // 4, _MAX_SPLITS)
-    return q_tiles, cv_tiles, max(1, splits)
+    tiles = q_tiles * cv_tiles * b
+    wave = max_clusters.get(1, 0)
+    if _splits is None:
+        bank = -(-t * hw // tile_positions(dtype))
+        fit = [s for s in range(2, min(_MAX_SPLITS, bank // MIN_TILES_PER_SPLIT) + 1)
+               if tiles * s <= wave]
+        _splits = max(fit, default=1)
+        one = max((s for s in fit if tiles <= max_clusters.get(s, 0)), default=1)
+        if -(-bank // one) - -(-bank // _splits) < L2_MERGE_TILES[dtype]:
+            _splits = one
+    if not 1 <= _splits <= _MAX_SPLITS:
+        raise ValueError(f"splits {_splits}: the kernel takes 1 to {_MAX_SPLITS}")
+    if _splits == 1 and _cluster in (None, 1):
+        return q_tiles, cv_tiles, 1, 1
+    if _cluster is None:
+        _cluster = (_splits if tiles <= max_clusters.get(_splits, 0) or tiles * _splits > wave
+                    else 1)
+    if _cluster == 1 and tiles * _splits > wave:
+        raise ValueError(f"splits {_splits}: the L2 merge needs the grid's {tiles * _splits} "
+                         f"blocks on the card at once, and it holds {wave}")
+    if _cluster not in (1, _splits) or (_cluster > 1 and max_clusters.get(_cluster, 0) < 1):
+        raise ValueError(f"splits {_splits}: no cluster of {_cluster} blocks fits on the card "
+                         "(a cluster is a tile's splits)")
+    return q_tiles, cv_tiles, _splits, _cluster
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +311,9 @@ def memory_read_partials_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.
 
 def combine_plain(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Merges split partials: acc [S, ..., Cv], ml [S, ..., 2] -> [..., Cv]
-    in `dtype`: sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s."""
+    in `dtype`: sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s.  The plain
+    version of the kernels' merge (merge_splits, csrc/memory_attn.cu), in
+    a cluster or through L2."""
     m, l = ml[..., 0], ml[..., 1]
     w = torch.exp2(m - m.max(dim=0).values)
     return ((w[..., None] * acc).sum(dim=0) / (w * l).sum(dim=0)[..., None]).to(dtype)
@@ -266,14 +323,51 @@ def combine_plain(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> to
 # kernels
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_table(device_index: int, dtype: torch.dtype, ck: int, cvt: int) -> Dict[int, int]:
+    lib = build()
+    table = {}
+    with torch.cuda.device(device_index):
+        for blocks in range(1, _MAX_SPLITS + 1):
+            count = ctypes.c_int(0)
+            _check(lib.otvm_memory_read_max_clusters(int(dtype == torch.float32), ck, cvt,
+                                                     blocks, ctypes.byref(count)),
+                   "the cluster occupancy query")
+            table[blocks] = count.value
+    return table
+
+
+def max_active_clusters(dtype: torch.dtype, ck: int, cv: int) -> Dict[int, int]:
+    """{n: how many clusters of n blocks (2..8) of the read kernel for
+    (dtype, Ck, Cv's value tile) the current card holds at once; 1: how
+    many blocks}, from cudaOccupancyMaxActiveClusters and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; queried once per card
+    and kernel."""
+    return dict(_cluster_table(torch.cuda.current_device(), dtype, ck, value_tile(cv)))
+
+
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, floats: int, counters: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The workspace of the L2 merge, for `device` and its current stream
+    (launches on one stream run in turn): fp32 partials and the tiles'
+    barrier counters, zeroed once (each launch leaves them fit for the
+    next).  Made on first use and grown, never per call."""
+    key = (device.index, torch.cuda.current_stream().cuda_stream)
+    part, bars = _workspaces.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=device)
+    if bars is None or bars.numel() < counters:
+        bars = torch.zeros(counters, dtype=torch.int32, device=device)
+    _workspaces[key] = (part, bars)
+    return part, bars
 
 
 def _on_own_card(fn):
@@ -294,47 +388,19 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _combine(lib: ctypes.CDLL, acc: torch.Tensor, ml: torch.Tensor, stream: int,
-             dtype: torch.dtype) -> torch.Tensor:
-    global combine_launches
-    splits, b, hw, cv = acc.shape
-    out = torch.empty((b, hw, cv), dtype=dtype, device=acc.device)
-    _check(lib.otvm_memory_combine(acc.data_ptr(), ml.data_ptr(), out.data_ptr(), b * hw, cv,
-                                   splits, int(dtype == torch.float32), stream),
-           "memory_combine")
-    combine_launches += 1
-    return out
-
-
-@_on_own_card
-def memory_combine_cuda(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The combine kernel: acc [S, B, HW, Cv], ml [S, B, HW, 2] fp32 on
-    the card -> [B, HW, Cv] in `dtype` (bf16 or fp32); its plain version is
-    combine_plain(acc, ml, dtype).  Raises on what it does not take."""
-    if not (acc.is_cuda and ml.is_cuda):
-        raise ValueError("memory_combine_cuda needs CUDA tensors")
-    if acc.dtype != torch.float32 or ml.dtype != torch.float32:
-        raise TypeError("memory_combine_cuda: partials must be float32")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"memory_combine_cuda: output dtype {dtype} not supported")
-    if acc.dim() != 4 or tuple(ml.shape) != (*acc.shape[:3], 2):
-        raise ValueError(f"memory_combine_cuda: acc {tuple(acc.shape)}, ml {tuple(ml.shape)}")
-    if not (acc.is_contiguous() and ml.is_contiguous()) or acc.shape[-1] % 4:
-        raise ValueError("memory_combine_cuda: want contiguous partials, Cv a multiple of 4")
-    return _combine(build(), acc, ml, _stream(acc), dtype)
-
-
 @_on_own_card
 def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                      slot_mask: Optional[torch.Tensor] = None,
-                     _splits: Optional[int] = None) -> torch.Tensor:
+                     _splits: Optional[int] = None,
+                     _cluster: Optional[int] = None) -> torch.Tensor:
     """The kernel (bf16: wgmma, fp32: 3xTF32 mma.sync), on the inputs'
-    card.  The split count comes from the shape (`launch_geometry`);
-    `_splits` overrides it, for the card tests and the split benchmark.
+    card: one launch, split and merged in a cluster or through L2 where
+    `launch_geometry` says so; `_splits` and `_cluster` override its split
+    count and cluster size, for the card tests and the split benchmark.
     Its output has no gradient: with grad enabled, inputs that require grad
     raise (`memory_read` takes them through `MemoryRead`).  Raises on what
     it does not take; never falls back."""
-    global launches
+    global launches, cluster_launches, l2_merge_launches
     if not (q_k.is_cuda and m_k.is_cuda and m_v.is_cuda):
         raise ValueError("memory_read_cuda needs CUDA tensors")
     if torch.is_grad_enabled() and (q_k.requires_grad or m_k.requires_grad
@@ -371,20 +437,23 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
         mask = slot_mask.to(device=q_k.device, dtype=torch.uint8).contiguous()
     lib = build()
     read = lib.otvm_memory_read_bf16 if q_k.dtype == torch.bfloat16 else lib.otvm_memory_read_f32
-    stream = _stream(q_k)
-    _, _, n_split = launch_geometry(b, hw, t, cv, _sm_count(q_k.device.index), _splits)
-    if n_split == 1:
-        out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
-        _check(read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(), mask.data_ptr(),
-                    out.data_ptr(), None, None, b, hw, t, ck, cv, 1, stream), "memory_read")
-        launches += 1
-        return out
-    acc = torch.empty((n_split, b, hw, cv), dtype=torch.float32, device=q_k.device)
-    ml = torch.empty((n_split, b, hw, 2), dtype=torch.float32, device=q_k.device)
-    _check(read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(), mask.data_ptr(), None,
-                acc.data_ptr(), ml.data_ptr(), b, hw, t, ck, cv, n_split, stream), "memory_read")
+    table = _cluster_table(q_k.device.index, q_k.dtype, ck, value_tile(cv))
+    q_tiles, cv_tiles, n_split, blocks = launch_geometry(b, hw, t, cv, q_k.dtype, table,
+                                                         _splits, _cluster)
+    part = bars = None
+    if n_split > blocks:
+        part, bars = (x.data_ptr() for x in _workspace(
+            q_k.device, n_split * b * hw * (cv + 2), 2 * b * q_tiles * cv_tiles))
+    out = torch.empty((b, hw, cv), dtype=q_k.dtype, device=q_k.device)
+    _check(read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                b, hw, t, ck, cv, n_split, blocks, part, bars, _stream(q_k)),
+           "memory_read kernel launch")
     launches += 1
-    return _combine(lib, acc, ml, stream, q_k.dtype)
+    if blocks > 1:
+        cluster_launches += 1
+    elif n_split > 1:
+        l2_merge_launches += 1
+    return out
 
 
 class MemoryRead(torch.autograd.Function):

@@ -17,11 +17,6 @@ import torch
 # summation order (sound ~1e-6; plain TF32 would give ~4e-4).  `control`
 # inputs give 2.5e-2..4.8e-2 (bf16) and 2e-4..3.8e-4 (fp32).
 READ_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# Combine, kernel vs plain: the same fp32 partials merged, then rounded
-# once to bf16 (sound ~2e-5) or kept in fp32 (sound ~1e-7); partials
-# rounded before the merge (`combine_control`) give ~2.5e-3 (through bf16)
-# and ~2e-4 (through fp16).
-COMBINE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # Read gradients, the autograd Function's (memory_read_vjp_plain) vs
 # autograd through the plain read, at the training shapes: bf16 rounds the
 # plain read's p (and so dp) mid-way (sound ~2.6e-3); fp32 differs by
@@ -53,12 +48,6 @@ def plain_read_grads(q_k, m_k, m_v, slot_mask, g):
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q_k, m_k, m_v)]
         return torch.autograd.grad(memory_read_plain(*leaves, slot_mask), leaves, g)
-
-
-def combine_control(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """fp32 partials rounded before a merge into `dtype`: through bf16 for
-    a bf16 output, through fp16 for an fp32 one."""
-    return acc.to(torch.bfloat16 if dtype == torch.bfloat16 else torch.float16).float()
 
 
 def device_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:

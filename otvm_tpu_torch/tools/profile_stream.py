@@ -109,9 +109,9 @@ def trace(ev: StreamingEvaluator, frames, tri, top: int):
         "device_ops_per_frame": sum(e.count for e in kernels) / len(frames),
         "top": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "count": e.count}
                 for e in kernels[:top]],
-        # the port's own kernels (memory_read_*, memory_combine), wherever they rank
+        # the port's own kernels (memory_read_*), wherever they rank
         "memory_kernels": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "count": e.count}
-                           for e in kernels if "memory_" in e.key],
+                           for e in kernels if "memory_read" in e.key],
     }
 
 

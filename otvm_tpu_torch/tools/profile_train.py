@@ -10,9 +10,8 @@ or bf16 compute with fp32 masters:
     two warm-up steps; the peak memory over those steps;
   * a torch.profiler trace of one step: device time by kernel, device ops
     a step, the device's busy share of the step's wall clock, and the
-    memory read's share: its kernels (memory_read_*, memory_combine) and
-    its backward (the autograd node MemoryReadBackward, with every kernel
-    it launched).
+    memory read's share: its kernels (memory_read_*) and its backward
+    (the autograd node MemoryReadBackward, with every kernel it launched).
 `chip_smoke.py` phase 6 makes its batches and times and profiles its steps
 with the same functions.  Needs a CUDA card; it does not run on the CPU.
 """
@@ -91,7 +90,7 @@ def profile_step(step, state, batch):
     return state, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "device_ops": sum(e.count for e in kernels),
-        "read_ms": sum(dev(e, "self_") for e in kernels if "memory_" in e.key),
+        "read_ms": sum(dev(e, "self_") for e in kernels if "memory_read" in e.key),
         "read_backward_ms": max(bwd) if bwd and max(bwd) > 0 else None,
         "top": [{"name": e.key[:90], "device_ms": dev(e, "self_"), "count": e.count}
                 for e in kernels[:15]],

@@ -9,12 +9,10 @@ split kernel's arithmetic: p rounded against a running max); the control's,
 the plain read on inputs rounded through a narrower type (`control`).  In
 fp32 also the fp32 kernel's tensor-core arithmetic, emulated
 (`memory_read_tf32_plain`): 3xTF32 (sound) and plain TF32 (what a kernel
-that dropped the small terms would give).  For the combine, per output
-dtype: the fp32 merge against an fp64 one (sound) and partials rounded
-before the merge (`combine_control`: through bf16, or fp16 for an fp32
-output).  1088x1920 takes 256 query rows of its 8160, to keep the score
-matrix small.  Then the read's gradients at the training shapes (B 4, HW
-400, T 1 and 2, no mask): the autograd Function's backward
+that dropped the small terms would give).  1088x1920 takes 256 query rows
+of its 8160, to keep the score matrix small.  Then the read's gradients
+at the training shapes (B 4, HW 400, T 1 and 2, no mask): the autograd
+Function's backward
 (`memory_read_vjp_plain`) against autograd through the plain read (sound),
 and autograd through the plain read on `control` inputs.
 """
@@ -23,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import memory_attn as ma
-from .kernel_check import combine_control, control, plain_read_grads, rel_err
+from .kernel_check import control, plain_read_grads, rel_err
 
 # b, hw, t, slot mask, query rows, label
 CASES = [(1, 1024, 6, [1, 1, 1, 1, 1, 0], 1024, "512p count 5"),
@@ -53,13 +51,6 @@ def main():
                         for passes in (3, 1)]
                 line += f"; 3xTF32 {tf32[0]:.3e}, 1xTF32 {tf32[1]:.3e}"
             print(line)
-        for dt in (torch.bfloat16, torch.float32):
-            acc, ml = ma.memory_read_partials_plain(q.to(dt), k.to(dt), v.to(dt), m, 8)
-            want = ma.combine_plain(acc, ml, dt)
-            sound = rel_err(ma.combine_plain(acc.double(), ml.double(), dt), want)
-            ctl = rel_err(ma.combine_plain(combine_control(acc, dt), ml, dt), want)
-            print(f"{label:22s} {str(dt)[6:]:9s} combine: sound {sound:.3e}, "
-                  f"control {ctl:.3e}")
     for t in (1, 2):
         q, k, v = torch.randn(4, 400, 128), torch.randn(4, t, 400, 128), torch.randn(4, t, 400, 512)
         g = torch.randn(4, 400, 512)

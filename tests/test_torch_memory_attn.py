@@ -2,11 +2,16 @@
 
 On the CPU: the plain version against the JAX package's XLA path and its
 Pallas kernel (interpret mode), fp32, at the JAX tests' shapes; the
-kernels' split arithmetic (plain partials merged by the plain combine)
-against the plain read; the launch geometry's coverage; and the fp32
-kernel's 3xTF32 arithmetic, emulated, against the plain read.  On a card:
-the CUDA kernels against their plain versions, by the norm-relative error
-that a lower-precision control fails (skipped without a card).  The read's
+kernels' split arithmetic (plain partials merged by `combine_plain`, the
+plain version of the kernels' merge) against the plain read; the launch
+geometry's coverage, split rule and merge under given max-active-cluster
+tables (`python -m pytest tests/test_torch_memory_attn.py -k "geometry or
+split_rule or forced"`); and the fp32 kernel's 3xTF32 arithmetic,
+emulated, against the plain read.  On a card: the CUDA kernels, split 1
+to 8 ways and merged in a cluster or through L2, against their plain
+versions, by the
+norm-relative error that a lower-precision control fails (skipped
+without a card).  The read's
 gradient: the autograd Function's plain backward against the JAX package's
 `_flash_bwd` on the CPU, and against autograd through the plain read on the
 CPU and on a card.  JAX is
@@ -17,8 +22,8 @@ import pytest
 import torch
 
 from otvm_tpu_torch.kernels import memory_attn as ma
-from otvm_tpu_torch.tools.kernel_check import (COMBINE_TOL, GRAD_TOL, READ_TOL, combine_control,
-                                               control, plain_read_grads, rel_err)
+from otvm_tpu_torch.tools.kernel_check import (GRAD_TOL, READ_TOL, control, plain_read_grads,
+                                               rel_err)
 
 # the JAX tests' shapes (tests/test_memory_attn_pallas.py): (hw, t, mask)
 CASES = [(64, 2, None), (96, 3, [1, 1, 0]), (128, 5, [1, 0, 0, 0, 0]), (70, 3, None)]
@@ -177,6 +182,25 @@ def test_split_partials_combine_to_plain(dtype, b, hw, t, rows, splits):
             > READ_TOL[dt]
 
 
+# {n: clusters of n blocks a card holds at once; 1: blocks}: for one block
+# per SM on 132 SMs in GPCs of 18, 18 and six of 16 SMs (a cluster lies in
+# one GPC); and as cudaOccupancyMaxActiveClusters gives it for every read
+# kernel on an H100 80GB HBM3, where 8-block clusters do not fit 16 at once
+# and 4-block ones not 32 (chip_smoke.py phase 2 prints it).
+GPC_TABLE = {s: sum(g // s for g in (18, 18, 16, 16, 16, 16, 16, 16)) for s in range(1, 9)}
+H100_TABLE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+def _splits_ok(dt, b, hw, t, cv, table, splits):
+    """The split rule's conditions: at most 8, at least MIN_TILES_PER_SPLIT
+    of the dtype's own K/V tiles a split, the whole grid on the card at
+    once."""
+    tiles = -(-hw // ma.BQ) * (cv // ma.value_tile(cv)) * b
+    bank = -(-t * hw // ma.tile_positions(dt))
+    return (splits <= 8 and bank >= splits * ma.MIN_TILES_PER_SPLIT
+            and tiles * splits <= table[1])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hw,t,ck,cv,rows", [
     (1, 1024, 6, 128, 512, [1, 1, 1, 1, 1, 0]),       # 512p, count 5
@@ -185,23 +209,43 @@ def test_split_partials_combine_to_plain(dtype, b, hw, t, rows, splits):
     (2, 70, 3, 128, 512, [0, 1, 0]),                  # ragged, non-prefix
     (1, 48, 3, 128, 384, [0, 0, 0]),                  # HW < 64, empty, Cv % 256 != 0
     (2, 64, 4, 32, 128, [1, 1, 0, 1]),                # the scale-4 model's widths
+    (4, 400, 1, 128, 512, [1]),                       # the training shapes, T=1
+    (4, 400, 2, 128, 512, [1, 1]),                    # and T=2
 ])
 def test_launch_geometry_covers_each_output_and_position_once(dtype, b, hw, t, ck, cv, rows):
-    """A launch's blocks (bf16 or fp32: one geometry) cover every (query
-    row, value column) once, in one wave on an H100 unless the split count
-    is forced; the plain split partials (the combine's input) in the
-    dtype read every live position once.  The kernels' own K/V coverage is
-    held by the card tests (1 and 4 splits)."""
+    """A launch's blocks cover every (query row, value column) once; the
+    chosen split count is the largest that meets the split rule (at most 8,
+    at least MIN_TILES_PER_SPLIT of the dtype's own K/V tiles a split, the
+    whole grid on the card at once), merged in one cluster a tile where the
+    card holds those clusters at once and through L2 otherwise, unless the
+    largest that merges in a cluster is within L2_MERGE_TILES; a forced
+    one is taken as it is; the plain split partials (the merge's input) in
+    the dtype read every live position once.  The kernels' own K/V
+    coverage is held by the card tests (splits 1 to 8)."""
     dt = getattr(torch, dtype)
-    for splits in (None, 1, 3):
-        q_tiles, cv_tiles, n_split = ma.launch_geometry(b, hw, t, cv, _splits=splits)
-        cvt = ma.value_tile(cv)
-        assert cv_tiles * cvt == cv and q_tiles * ma.BQ >= hw > (q_tiles - 1) * ma.BQ
-        if splits is None:
-            assert q_tiles * cv_tiles * b * n_split <= 132   # one wave on an H100
-            assert n_split == 1 or n_split * 4 * ma.BK <= t * hw   # >= 4 K/V tiles a split
-        else:
-            assert n_split == splits
+    for table in (GPC_TABLE, H100_TABLE):
+        for splits in (None, 1, 3, 8):
+            q_tiles, cv_tiles, n_split, blocks = ma.launch_geometry(b, hw, t, cv, dt, table,
+                                                                    _splits=splits)
+            cvt = ma.value_tile(cv)
+            assert cv_tiles * cvt == cv and q_tiles * ma.BQ >= hw > (q_tiles - 1) * ma.BQ
+            tiles = q_tiles * cv_tiles * b
+            assert blocks in (1, n_split)
+            if splits is None:
+                # the most splits, or the most that merge in one cluster a
+                # tile where more cut fewer than L2_MERGE_TILES off the
+                # longest split
+                ok = [s for s in range(2, 17) if _splits_ok(dt, b, hw, t, cv, table, s)]
+                most = max(ok, default=1)
+                one = max((s for s in ok if tiles <= table[s]), default=1)
+                longest = lambda s: -(-t * hw // ma.tile_positions(dt) // s)
+                cut = longest(one) - longest(most) >= ma.L2_MERGE_TILES[dt]
+                assert n_split == (most if cut else one)
+            else:
+                assert n_split == splits
+            if n_split > 1:     # one cluster a tile where they fit at once, else L2
+                in_clusters = tiles <= table[n_split] or tiles * n_split > table[1]
+                assert (blocks == n_split) == in_clusters
         # one query row, scores 0; V = (1, position in base 64): digits
         # below 64 are exact in bf16, and the merged partials' sums
         # (integers below 2^24, exact in fp32) give the count and three
@@ -259,10 +303,79 @@ def _cuda_ready():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+@pytest.mark.parametrize("dtype,b,hw,t,table,want", [
+    ("bfloat16", 1, 1024, 6, GPC_TABLE, "8x8"),   # 512p: 16 clusters of 8 at once
+    ("float32", 1, 1024, 6, GPC_TABLE, "8x8"),
+    ("bfloat16", 1, 1024, 6, H100_TABLE, "8x1"),  # the H100 holds 15: the L2 merge
+    ("float32", 1, 1024, 6, H100_TABLE, "8x1"),
+    ("float32", 4, 400, 1, GPC_TABLE, "4x4"),     # training T=1: 13 fp32 tiles; 32 clusters
+    ("float32", 4, 400, 2, GPC_TABLE, "4x4"),     # of 4 fit (T=2: 25 tiles)
+    ("float32", 4, 400, 1, H100_TABLE, "4x1"),    # but not on the H100 (30)
+    ("float32", 4, 400, 2, H100_TABLE, "4x1"),
+    ("bfloat16", 4, 400, 1, H100_TABLE, "3x3"),   # 7 bf16 tiles: 3 splits, 32 clusters of 3
+    ("bfloat16", 4, 400, 2, H100_TABLE, "3x3"),   # 13 bf16 tiles: 4 cuts only 1 off 5
+    ("bfloat16", 1, 8160, 3, GPC_TABLE, "1x1"),   # 1088x1920: 128 blocks fill the card
+    ("float32", 1, 8160, 3, H100_TABLE, "1x1"),
+])
+def test_split_rule_counts_own_tiles_in_one_wave(dtype, b, hw, t, table, want):
+    """The split count and how it merges ("splits x blocks a cluster") at
+    the stream's and the training shapes, under a card's table: each
+    dtype's own K/V tiles (bf16 64 positions, fp32 32) at least
+    MIN_TILES_PER_SPLIT a split, the whole grid on the card at once, one
+    cluster a tile where they fit at once, else through L2, unless fewer
+    splits in one cluster leave the longest split within L2_MERGE_TILES."""
+    dt = getattr(torch, dtype)
+    got = ma.launch_geometry(b, hw, t, 512, dt, table)[2:]
+    assert "x".join(map(str, got)) == want
+
+
+def test_split_rule_unit_and_cap():
+    """fp32 counts the bank in 32-position tiles, bf16 in 64-position ones;
+    no split count passes 8, however large the bank and the card."""
+    assert (ma.tile_positions(torch.bfloat16), ma.tile_positions(torch.float32)) == (64, 32)
+    roomy = {s: 10 ** 6 for s in range(1, 17)}
+    hw = 32 * ma.MIN_TILES_PER_SPLIT                  # T=3: 3 N fp32 tiles, 1.5 N bf16 ones
+    assert ma.launch_geometry(1, hw, 3, 512, torch.float32, roomy)[2] == 3
+    assert ma.launch_geometry(1, hw, 3, 512, torch.bfloat16, roomy)[2] == 1
+    for dt in (torch.float32, torch.bfloat16):
+        assert ma.launch_geometry(1, hw, 256, 512, dt, roomy)[2] == 8
+
+
+@pytest.mark.parametrize("splits", [0, 9, 16])
+def test_forced_splits_outside_a_cluster_raise(splits):
+    with pytest.raises(ValueError, match="1 to 8"):
+        ma.launch_geometry(1, 1024, 6, 512, torch.bfloat16, GPC_TABLE, _splits=splits)
+
+
+def test_forced_splits_that_no_card_cluster_holds_raise():
+    """A forced split count takes one cluster a tile where the card holds
+    them at once, else the L2 merge where it holds the grid at once, else
+    clusters in more than one wave; it is refused where the card holds no
+    cluster of its size, where a forced cluster size is neither 1 nor the
+    splits, and where a forced L2 merge's grid does not fit at once.  1
+    (no cluster) is always taken."""
+    table = {**H100_TABLE, 8: 0}
+    with pytest.raises(ValueError, match="no cluster of 8"):
+        ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=8, _cluster=8)
+    with pytest.raises(ValueError, match="no cluster of 4"):
+        ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=8, _cluster=4)
+    with pytest.raises(ValueError, match="on the card at once"):
+        ma.launch_geometry(1, 8160, 3, 512, torch.float32, table, _splits=2, _cluster=1)
+    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=8)[2:] == (8, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=6)[2:] == (6, 6)
+    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=6,
+                              _cluster=1)[2:] == (6, 1)
+    assert ma.launch_geometry(1, 8160, 3, 512, torch.float32, table,
+                              _splits=2)[2:] == (2, 2)              # 128 x 2 > 132: two waves
+    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, {}, _splits=1)[2:] == (1, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table)[2:] == (8, 1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,splits", [
-    ("float32", None), ("float32", 1), ("float32", 4),
-    ("bfloat16", None), ("bfloat16", 1), ("bfloat16", 4)])
+@pytest.mark.parametrize("dtype,splits,cluster", [
+    (d, s, c) for d in ("float32", "bfloat16")
+    for s, c in ((None, None), (1, None), (2, None), (3, None), (4, None), (5, None), (8, None),
+                 (8, 8), (4, 4), (8, 1), (6, 1), (4, 1), (3, 1), (2, 1))])
 @pytest.mark.parametrize("b,hw,t,rows,ck,cv", [
     (1, 1024, 6, [1, 1, 1, 1, 1, 0], 128, 512), (1, 1024, 6, [1, 0, 0, 0, 0, 0], 128, 512),
     (2, 70, 3, [1, 0, 1], 128, 512), (1, 64, 3, [0, 0, 0], 128, 512),
@@ -272,17 +385,38 @@ def _cuda_ready():
     (2, 64, 4, [[1, 1, 0, 0], [0, 0, 0, 1]], 32, 128),  # the scale-4 model's widths
     (1, 100, 2, [1, 1], 128, 384),                    # Cv not a multiple of 256
 ])
-def test_kernel_matches_plain_on_cuda(request, dtype, splits, b, hw, t, rows, ck, cv):
+def test_kernel_matches_plain_on_cuda(request, dtype, splits, cluster, b, hw, t, rows, ck, cv):
+    """One launch per read; a split one merges in the kernel: in one
+    cluster a tile (which traps if a block's cluster rank is not its
+    split), or, with cluster 1, through L2 after a barrier of the tile's
+    blocks (then twice in a row: the barrier's counters must be left fit
+    for the next launch), which is refused where the grid does not fit on
+    the card at once.  Splits 2 to 8 cover empty splits (HW 48 and 64),
+    ragged query tiles (HW 70, 100), Ck=32 (whose merge tile grows the
+    shared memory), Cv=384 (128-column value tiles) and B=2."""
     _cuda_ready()
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).cuda().to(dt)
                for a in _inputs(b, hw, t, seed=6, ck=ck, cv=cv))
     m = np.asarray(rows, bool)
     m = torch.from_numpy(np.tile(m[None], (b, 1)) if m.ndim == 1 else m).cuda()
-    before = ma.launches
-    got = ma.memory_read_cuda(q, k, v, m, _splits=splits)
+    table = ma.max_active_clusters(dt, ck, cv)
+    tiles = -(-hw // ma.BQ) * (cv // ma.value_tile(cv)) * b
+    if cluster == 1 and tiles * splits > table[1]:
+        with pytest.raises(ValueError, match="on the card at once"):
+            ma.memory_read_cuda(q, k, v, m, _splits=splits, _cluster=cluster)
+        return
+    n_split, blocks = ma.launch_geometry(b, hw, t, cv, dt, table, _splits=splits,
+                                         _cluster=cluster)[2:]
+    before = ma.launches, ma.cluster_launches, ma.l2_merge_launches
+    got = ma.memory_read_cuda(q, k, v, m, _splits=splits, _cluster=cluster)
     torch.cuda.synchronize()
-    assert ma.launches == before + 1
+    assert (ma.launches, ma.cluster_launches, ma.l2_merge_launches) == (
+        before[0] + 1, before[1] + (blocks > 1), before[2] + (n_split > blocks))
+    request.node.user_properties += [("splits", n_split), ("blocks", blocks)]
+    if n_split > blocks:
+        again = ma.memory_read_cuda(q, k, v, m, _splits=splits, _cluster=cluster)
+        assert torch.equal(again, got), "a second launch on the same workspace differs"
     want = ma.memory_read_plain(q, k, v, m)
     assert torch.isfinite(got.float()).all()
     # the same read on inputs of a narrower type fails the check
@@ -290,27 +424,6 @@ def test_kernel_matches_plain_on_cuda(request, dtype, splits, b, hw, t, rows, ck
         ma.memory_read_plain(control(q), control(k), control(v), m), want)
     request.node.user_properties += [("rel_err", rel), ("control_rel_err", rel_ctl)]
     assert rel <= READ_TOL[dt] < rel_ctl
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,hw,t,rows,splits", SPLIT_CASES)
-def test_combine_matches_plain_on_cuda(request, dtype, b, hw, t, rows, splits):
-    _cuda_ready()
-    dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in _inputs(b, hw, t, seed=8))
-    acc, ml = ma.memory_read_partials_plain(q, k, v, torch.tensor(rows, device="cuda"), splits)
-    before = ma.combine_launches
-    got = ma.memory_combine_cuda(acc, ml, dt)
-    torch.cuda.synchronize()
-    assert ma.combine_launches == before + 1 and got.dtype == dt
-    # both merge the same fp32 partials (and round once to bf16); partials
-    # rounded before the merge (through bf16, or fp16 for fp32) fail the check
-    want = ma.combine_plain(acc, ml, dt)
-    rel, rel_ctl = rel_err(got, want), rel_err(
-        ma.combine_plain(combine_control(acc, dt), ml, dt), want)
-    request.node.user_properties += [("rel_err", rel), ("control_rel_err", rel_ctl)]
-    assert rel <= COMBINE_TOL[dt] < rel_ctl
 
 
 @pytest.mark.cuda
