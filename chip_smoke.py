@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
      launch, merged in the kernel: in one cluster a tile, or through L2)
      at forced splits 2..8, each merge forced, and the chosen split, at
      512p, the training shapes, empty splits, ragged tiles, Ck=32 and
-     Cv=384; then the whole read's time at
+     Cv=384; a forced L2-merged read at 512p fp32 beside a kernel that
+     holds 40 SMs on another CUDA stream (otvm_tpu_torch/tools/
+     coresidency.py, in a child process): launched cooperatively, it must
+     wait for them and match the plain read; then the whole read's time at
      512p count 5, 1088x1920 count 2 and the training shapes (B 4, HW 400,
      T 1 and 2) beside the plain version's, SDPA's (a yardstick only: the
      port never calls it) and the bound (fp32: at the 3xTF32 rate, the
@@ -51,7 +54,17 @@ Phases, in order; any failure exits non-zero:
      changed after; then timed steps (CUDA events), the peak memory and the
      read's share of a profiled step.  Then bf16 steps (bf16 kernel, fp32
      masters) and stage-1 trimap steps (make_trimap_s1_train_step), each
-     launching the kernel with finite losses.
+     launching the kernel with finite losses;
+  7. the runner's other serving paths at full width, 512x512, random
+     weights from seeds: MultiStreamEvaluator over three streams (30, 17
+     and again the 30 frames) in fp32, every read in lockstep, 74 reads
+     merged through L2, each stream equal to its serial run_video bit for
+     bit, then in bf16, timed (aggregate frames/s); the chunked stream
+     (chunk 8 over 30 frames: 29 reads, equal to run_video bit for bit);
+     TrimapEvaluator with the stage-1 STM (29 reads in lockstep) and
+     trimap_eval_step(memorize_gt) over 8 frames with a bank of 2 (slot 0
+     evicted); stage 2 on given trimaps (no read); and a stage-4 stream on
+     the resnet50_BN FBA trunk (6 frames, 5 reads in lockstep).
 The line before the last is a JSON object with the kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -236,6 +249,21 @@ def kernel_phase(torch, ma):
             assert rel_ctl > READ_TOL[dt], f"the check would pass the control ({label})"
             assert max(rels) <= READ_TOL[dt], f"split read {dname} {label}: rel err {max(rels):.3e}"
 
+    # the L2 merge's wait inside its launch, with SMs held by a kernel on
+    # another stream; in a child process, as a trap ends a CUDA context
+    from otvm_tpu_torch.tools import coresidency
+
+    held = coresidency.run_case()
+    nan = float("nan")
+    print(f"  L2 merge beside a kernel holding {held.get('held_resident')} SMs on another "
+          f"stream ({coresidency.HOLD_S:g} s): the forced 512p fp32 read "
+          f"({held.get('read_blocks')} blocks, {held.get('card_blocks')} on the empty card) "
+          f"finished {held.get('finished')}, waited {held.get('wait_s', nan):.3f} s, rel err "
+          f"{held.get('rel_err', nan):.3e} (tol {READ_TOL[torch.float32]:g}); the hold still "
+          f"running at its end: {held.get('hold_running_at_read_end')}"
+          + (f"; {held['error']}" if "error" in held else ""))
+    assert held.get("ok"), f"the L2 merge beside held SMs failed: {held}"
+
     # timings of the whole read (the split merged in its one launch): the
     # stream's steady state (512p, 5 valid slots of 6), 1088x1920 (the
     # VM108 protocol's large inputs: 2 valid slots of 3), and the training
@@ -271,7 +299,7 @@ def kernel_phase(torch, ma):
                 row["bound_cuda_cores_ms"] = cuda_cores_ms
             print(f"  time {dname:8s} {label}: " + fmt_row(row))
             print_faster(dname, label, row)
-    return timing
+    return timing, held
 
 
 @contextlib.contextmanager
@@ -501,6 +529,142 @@ def train_phase(torch, ma, card):
     return out
 
 
+def reset_counts(torch, ma):
+    torch.cuda.synchronize()
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
+
+
+def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
+    """Phase 7: the runner's other serving paths at full width, 512x512,
+    every read of the fp32 paths checked in lockstep.  `serial` is phase
+    4's fp32 run_video of `frames` ((alphas, trimaps)), the per-frame
+    reference of the multi-stream and chunked runs."""
+    from otvm_tpu_torch.eval.runner import (EvalProtocol, MultiStreamEvaluator,
+                                            StreamingEvaluator, TrimapEvaluator)
+    from otvm_tpu_torch.models.otvm import init_models, make_eval_bank, trimap_eval_step
+
+    out = {}
+    proto = dict(memory_max_num=MAX_MEM, memory_skip_frame=SKIP)
+    frames_b, tri_b = make_video(17, seed=1)
+    clips = [dict(frames=frames, first_trimap=tri), dict(frames=frames_b, first_trimap=tri_b),
+             dict(frames=frames, first_trimap=tri)]
+    same = lambda xs, ys: len(xs) == len(ys) and all(np.array_equal(x, y) for x, y in zip(xs, ys))
+
+    # multi-stream, fp32: A (30 frames), B (17, another seed), C = A again
+    multi = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", **proto))
+    serial_b = multi.run_video(frames_b, tri_b)[:2]
+    reset_counts(torch, ma)
+    with lockstep_check(torch, ma, "float32") as errs:
+        results, fps32 = multi.run_videos(clips)
+    out["multistream_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
+                                   frames_per_s_with_lockstep=fps32)
+    want = N_FRAMES - 1 + 16 + N_FRAMES - 1
+    print(f"  multi-stream fp32, 3 streams (30, 17, 30 frames): memory_read {ma.launches} launches "
+          f"(want {want}), merged in a cluster / through L2 {merges(ma)}; every read vs plain: rel "
+          f"err <= {max(errs):.3e}; {fps32:.2f} frames/s (lockstep-checked)")
+    assert ma.launches == len(errs) == want and merges(ma) == (0, want), \
+        "the multi-stream run did not read once per segment call, each merged through L2"
+    for k, (alphas, trimaps) in enumerate(results):
+        check_outputs(alphas, trimaps, len(clips[k]["frames"]), f"multi-stream {k}")
+    equal = [same(results[0][0], serial[0]) and same(results[0][1], serial[1]),
+             same(results[1][0], serial_b[0]) and same(results[1][1], serial_b[1]),
+             same(results[2][0], results[0][0]) and same(results[2][1], results[0][1])]
+    print(f"  multi-stream vs serial run_video, bit for bit: A {equal[0]}, B {equal[1]}; "
+          f"C vs A {equal[2]}")
+    assert all(equal), "the multi-stream outputs differ from the serial streams'"
+    del multi
+
+    # multi-stream, bf16, timed (after a short warm-up)
+    multi16 = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="bf16", **proto))
+    multi16.run_videos([dict(frames=frames[:3], first_trimap=tri)] * 2)
+    reset_counts(torch, ma)
+    results16, fps16 = multi16.run_videos(clips)
+    out["multistream_bf16"] = dict(launches=ma.launches, merges=merges(ma), frames_per_s=fps16)
+    for k, (alphas, trimaps) in enumerate(results16):
+        check_outputs(alphas, trimaps, len(clips[k]["frames"]), f"bf16 multi-stream {k}")
+    assert ma.launches == want, "the bf16 multi-stream run did not read once per segment call"
+    print(f"multistream_512p_joint_s4_bf16: {fps16:.3f} frames/s aggregate (3 streams, "
+          f"{sum(len(c['frames']) for c in clips)} frames, run_videos, wall clock) on {card}")
+    del multi16
+
+    # chunked, fp32: 8 frames a call over 30, the last chunk short
+    chunked = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", chunk=8, **proto))
+    reset_counts(torch, ma)
+    with lockstep_check(torch, ma, "float32") as errs:
+        ca, ct, cfps = chunked.run_video(frames, tri)
+    out["chunked_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
+                               frames_per_s_with_lockstep=cfps)
+    equal = same(ca, serial[0]) and same(ct, serial[1])
+    print(f"  chunked fp32 (chunk 8, 30 frames): memory_read {ma.launches} launches, merged "
+          f"{merges(ma)}; rel err <= {max(errs):.3e}; equal to run_video bit for bit: {equal}")
+    assert ma.launches == N_FRAMES - 1 and equal, "the chunked stream is not the per-frame one"
+    del chunked
+
+    # trimap propagation alone, fp32: the stage-1 STM
+    stm1 = init_models(seed=3, stage=1)[0].state_dict()
+    trimap_ev = TrimapEvaluator(stm1, EvalProtocol(**proto))
+    reset_counts(torch, ma)
+    with lockstep_check(torch, ma, "float32") as errs:
+        tris, tfps = trimap_ev.run_video(frames, tri)
+    out["trimap_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
+                              frames_per_s_with_lockstep=tfps)
+    print(f"  trimap-only fp32 (30 frames): memory_read {ma.launches} launches, merged "
+          f"{merges(ma)}; rel err <= {max(errs):.3e}; {tfps:.2f} frames/s (lockstep-checked)")
+    assert ma.launches == N_FRAMES - 1, "the trimap stream did not read once per segment call"
+    assert len(tris) == N_FRAMES and all(t.shape == (H, W, 3) and np.isfinite(t).all()
+                                         for t in tris)
+    # memorize_gt: every frame memorized with the GT trimap, the bank (at
+    # most 2) evicting slot 0 on overflow
+    bank = make_eval_bank(1, H, W, 2)
+    first_tri = torch.from_numpy(tri[None]).cuda()
+    counts, first_key = [], None
+    reset_counts(torch, ma)
+    with lockstep_check(torch, ma, "float32") as errs:
+        for i in range(8):
+            frame = torch.from_numpy(frames[i][None]).cuda()
+            bank, _ = trimap_eval_step(trimap_ev.stm, bank, frame, first_tri, i == 0, i % 3 == 0,
+                                       2, memorize_gt=True)
+            counts.append(bank.count)
+            if i == 0:
+                first_key = bank.keys[:, 0].clone()
+    evicted = not torch.equal(bank.keys[:, 0], first_key)
+    out["trimap_memorize_gt"] = dict(launches=ma.launches, counts=counts, slot0_evicted=evicted)
+    print(f"  trimap_eval_step(memorize_gt) 8 frames, bank of at most 2: counts {counts}, slot 0 "
+          f"evicted {evicted}; {ma.launches} launches, rel err <= {max(errs):.3e}")
+    assert ma.launches == 7 and counts == [1, 2, 2, 2, 2, 2, 2, 2] and evicted
+    del trimap_ev
+
+    # given trimaps, stage 2: FBA alone, no read
+    fba2 = init_models(seed=4, stage=2)[1].state_dict()
+    given = StreamingEvaluator(None, fba2, EvalProtocol(stage=2, **proto))
+    gts = [tri, tri[::-1].copy(), tri[:, ::-1].copy(), tri, tri]
+    reset_counts(torch, ma)
+    ga, gt, _ = given.run_video(frames[:5], tri, gt_trimaps=gts)
+    out["given_trimap_stage2"] = dict(launches=ma.launches)
+    print(f"  given trimaps, stage 2, 5 frames: memory_read {ma.launches} launches; alpha in "
+          f"[{min(a.min() for a in ga):.4f}, {max(a.max() for a in ga):.4f}]")
+    assert ma.launches == 0 and len(ga) == 5 and all(t is g for t, g in zip(gt, gts))
+    assert all(a.shape == (H, W) and np.isfinite(a).all() and 0 <= a.min() <= a.max() <= 1
+               for a in ga)
+    del given
+
+    # the BN FBA trunk, stage 4, fp32
+    stm_bn, fba_bn = init_models(seed=5, stage=4, arch="resnet50_BN")
+    bn = StreamingEvaluator(stm_bn.state_dict(), fba_bn.state_dict(),
+                            EvalProtocol(arch="resnet50_BN", **proto))
+    reset_counts(torch, ma)
+    with lockstep_check(torch, ma, "float32") as errs:
+        ba, bt, _ = bn.run_video(frames[:6], tri)
+    out["bn_trunk_stage4_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs))
+    check_outputs(ba, bt, 6, "resnet50_BN stream")
+    print(f"  resnet50_BN stage-4 stream, 6 frames: memory_read {ma.launches} launches, merged "
+          f"{merges(ma)}; rel err <= {max(errs):.3e}")
+    assert ma.launches == 5, "the BN-trunk stream did not read once per segment call"
+    del bn
+    torch.cuda.empty_cache()
+    return out
+
+
 def make_video(n, seed=0):
     """Smooth seeded frames (a coarse random grid, bilinearly upsampled,
     new per frame) and the bench's nested-box first trimap."""
@@ -583,7 +747,7 @@ def main() -> int:
                   ", ".join(f"{s}: {n}" for s, n in table.items()))
 
     print("phase 3: kernel vs plain")
-    timing = kernel_phase(torch, ma)
+    timing, held = kernel_phase(torch, ma)
 
     print("phase 4: full-width stage-4 stream, fp32, kernel vs plain read")
     stm, fba = init_models(seed=0, stage=4)
@@ -668,6 +832,11 @@ def main() -> int:
     train = train_phase(torch, ma, card)
     print(f"train_stage4_320 on {card}: {json.dumps(train)}")
 
+    print("phase 7: the other serving paths at full width")
+    t7 = time.perf_counter()
+    serving = serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, (ka, kt))
+    print(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the bf16 stream's launches; every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -697,6 +866,8 @@ def main() -> int:
          "launches_train": {f"fp32 stage 4, {TRAIN_STEPS} steps": train["launches"],
                             f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_launches"],
                             f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
+         "serving_paths": serving,
+         "l2_merge_beside_held_sms": held,
          "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

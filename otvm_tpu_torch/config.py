@@ -50,7 +50,7 @@ class TrainConfig:
 @dataclasses.dataclass
 class AlphaConfig:
     model: str = "fba"
-    arch: str = "resnet50_GN_WS"    # the port has only this FBA trunk
+    arch: str = "resnet50_GN_WS"    # or "resnet50_BN" (models/fba.py ENCODER_ARCHS)
 
 
 @dataclasses.dataclass
@@ -71,6 +71,8 @@ class Config:
 def get_cfg_defaults() -> Config:
     return Config()
 
+
+TRIMAP_WIDTH_KERNELS = {"narrow": 5, "medium": 12, "wide": 20}  # eval.py:67-72
 
 MODEL_NAMES = {1: "s1_OTVM_alpha", 2: "s2_OTVM_alpha", 3: "s3_OTVM", 4: "s4_OTVM"}
 

@@ -5,7 +5,8 @@ HWIO kernels and flax names (scale/bias/mean/var); the port holds the
 original OTVM state_dict names with OIHW weights (weight/bias/
 running_mean/running_var).  The name tables are this package's own copy of
 the mapping (the JAX package's otvm_tpu/convert/torch_import.py encodes the
-same names), built per stage, STM trunk norm and width scale.
+same names; it has none for the BN FBA trunk), built per stage, STM trunk
+norm, FBA trunk (`arch`) and width scale.
 
 Both directions are strict: no port key is left unfilled and no JAX leaf is
 left unused.  Entries marked 'const' (BN num_batches_tracked, the STM
@@ -97,21 +98,40 @@ def stm_table(hdim: int, scale: int = 1, norm: str = "frozen_bn") -> Table:
     return t
 
 
-def fba_table(refinement: bool, scale: int = 1) -> Table:
-    t: Table = {}
+def _bn_affine(t: Table, tk: str, path):
+    """otvm_tpu.nn.resnet_bn.BNAffine: scale and bias, no statistics."""
+    t[tk + ".weight"] = ("params", path + ("scale",), "vec")
+    t[tk + ".bias"] = ("params", path + ("bias",), "vec")
+
+
+def _fba_trunk(t: Table, arch: str, scale: int):
+    """The encoder: GN-WS (WSConv kernels, GroupNorm32) or BN (linen
+    Conv, BNAffine, a 3-conv stem; no width-scaled variant)."""
     e = ("encoder",)
-    _conv(t, "encoder.conv1", e + ("conv1",))
-    _gn32(t, "encoder.bn1", e + ("bn1",))
-    blocks = (3, 4, 6, 3) if scale == 1 else (1, 1, 1, 1)
+    if arch == "resnet50_GN_WS":
+        conv, norm, stem = _conv, _gn32, (1,)
+        blocks = (3, 4, 6, 3) if scale == 1 else (1, 1, 1, 1)
+    elif arch == "resnet50_BN" and scale == 1:
+        conv, norm, stem, blocks = _linen_conv, _bn_affine, (1, 2, 3), (3, 4, 6, 3)
+    else:
+        raise KeyError(f"no FBA trunk {arch!r} at scale {scale}")
+    for j in stem:
+        conv(t, f"encoder.conv{j}", e + (f"conv{j}",))
+        norm(t, f"encoder.bn{j}", e + (f"bn{j}",))
     for li, nb in enumerate(blocks, start=1):
         for i in range(nb):
             bk, bp = f"encoder.layer{li}.{i}", e + (f"layer{li}", str(i))
             for j in (1, 2, 3):
-                _conv(t, f"{bk}.conv{j}", bp + (f"conv{j}",))
-                _gn32(t, f"{bk}.bn{j}", bp + (f"bn{j}",))
+                conv(t, f"{bk}.conv{j}", bp + (f"conv{j}",))
+                norm(t, f"{bk}.bn{j}", bp + (f"bn{j}",))
             if i == 0:
-                _conv(t, f"{bk}.downsample.0", bp + ("downsample_conv",))
-                _gn32(t, f"{bk}.downsample.1", bp + ("downsample_bn",))
+                conv(t, f"{bk}.downsample.0", bp + ("downsample_conv",))
+                norm(t, f"{bk}.downsample.1", bp + ("downsample_bn",))
+
+
+def fba_table(refinement: bool, scale: int = 1, arch: str = "resnet50_GN_WS") -> Table:
+    t: Table = {}
+    _fba_trunk(t, arch, scale)
     d = ("decoder",)
     conv_gn = [(f"ppm.{i}.1", f"ppm.{i}.2", f"ppm{i}") for i in range(4)] + [
         ("conv_up1.0", "conv_up1.1", "up1_0"), ("conv_up1.3", "conv_up1.4", "up1_1"),
@@ -190,59 +210,63 @@ def stm_from_jax(stm_vars: Mapping, hdim: int = 16, scale: int = 1) -> Dict[str,
     return _apply_from_jax(stm_vars, stm_table(hdim, scale, norm))
 
 
-def fba_from_jax(fba_vars: Mapping, refinement: bool = True,
-                 scale: int = 1) -> Dict[str, torch.Tensor]:
-    return _apply_from_jax(fba_vars, fba_table(refinement, scale))
+def fba_from_jax(fba_vars: Mapping, refinement: bool = True, scale: int = 1,
+                 arch: str = "resnet50_GN_WS") -> Dict[str, torch.Tensor]:
+    return _apply_from_jax(fba_vars, fba_table(refinement, scale, arch))
 
 
-def from_jax(stm_vars: Mapping, fba_vars: Mapping, stage: int = 4, scale: int = 1
+def from_jax(stm_vars: Mapping, fba_vars: Mapping, stage: int = 4, scale: int = 1,
+             arch: str = "resnet50_GN_WS"
              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """JAX variables (nested dicts of arrays) -> the port's (STM, FBA)
-    state_dicts for a stage."""
+    state_dicts for a stage and FBA trunk."""
     refinement = stage > 2
     return (stm_from_jax(stm_vars, 16 if refinement else -1, scale),
-            fba_from_jax(fba_vars, refinement, scale))
+            fba_from_jax(fba_vars, refinement, scale, arch))
 
 
 def to_jax(stm_state: Mapping[str, torch.Tensor], fba_state: Mapping[str, torch.Tensor],
-           stage: int = 4, scale: int = 1) -> Tuple[Dict[str, dict], Dict[str, dict]]:
+           stage: int = 4, scale: int = 1, arch: str = "resnet50_GN_WS"
+           ) -> Tuple[Dict[str, dict], Dict[str, dict]]:
     """The port's (STM, FBA) state_dicts -> JAX variables of numpy arrays."""
     refinement = stage > 2
     norm = "frozen_bn" if any(k.endswith("running_mean") for k in stm_state) else "gn"
     return (_apply_to_jax(stm_state, stm_table(16 if refinement else -1, scale, norm)),
-            _apply_to_jax(fba_state, fba_table(refinement, scale)))
+            _apply_to_jax(fba_state, fba_table(refinement, scale, arch)))
 
 
 # ---------------------------------------------------------------------------
 # per-parameter training state: gradients, RAdam moments
 # ---------------------------------------------------------------------------
 
-def _param_tables(stage: int, scale: int) -> Tuple[Table, Table]:
+def _param_tables(stage: int, scale: int, arch: str = "resnet50_GN_WS"
+                  ) -> Tuple[Table, Table]:
     """The tables' trainable entries: the JAX 'params' collection.  A
     trunk norm's parameters have the same names under either norm."""
     keep = lambda t: {k: v for k, v in t.items() if v[0] == "params"}
     refinement = stage > 2
     return (keep(stm_table(16 if refinement else -1, scale)),
-            keep(fba_table(refinement, scale)))
+            keep(fba_table(refinement, scale, arch)))
 
 
 def params_to_jax(stm_tensors: Mapping[str, torch.Tensor],
-                  fba_tensors: Mapping[str, torch.Tensor], stage: int = 4, scale: int = 1
-                  ) -> Dict[str, dict]:
+                  fba_tensors: Mapping[str, torch.Tensor], stage: int = 4, scale: int = 1,
+                  arch: str = "resnet50_GN_WS") -> Dict[str, dict]:
     """Per-parameter tensors of the port (gradients, optimizer moments, or
     the parameters themselves), keyed by parameter name, -> the JAX
     package's params tree {'stm': ..., 'fba': ...}, with the weights'
     per-leaf layout transform.  Strict: every parameter, nothing else."""
-    stm_t, fba_t = _param_tables(stage, scale)
+    stm_t, fba_t = _param_tables(stage, scale, arch)
     return {"stm": _apply_to_jax(stm_tensors, stm_t).get("params", {}),
             "fba": _apply_to_jax(fba_tensors, fba_t).get("params", {})}
 
 
-def params_from_jax(tree: Mapping[str, Mapping], stage: int = 4, scale: int = 1
+def params_from_jax(tree: Mapping[str, Mapping], stage: int = 4, scale: int = 1,
+                    arch: str = "resnet50_GN_WS"
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """params_to_jax's inverse: a JAX params tree {'stm': ..., 'fba': ...}
     (parameters, gradients or moments) -> (STM, FBA) tensors by name."""
-    stm_t, fba_t = _param_tables(stage, scale)
+    stm_t, fba_t = _param_tables(stage, scale, arch)
     return (_apply_from_jax({"params": tree["stm"]}, stm_t),
             _apply_from_jax({"params": tree["fba"]}, fba_t))
 
@@ -264,7 +288,7 @@ def radam_state_to_jax(optimizer, stm: torch.nn.Module, fba: torch.nn.Module,
     params trees: the fields of otvm_tpu's RAdamState.  Strict: every
     parameter needs its moments."""
     moments = [params_to_jax(_named_state(optimizer, stm, key), _named_state(optimizer, fba, key),
-                             stage, scale) for key in ("exp_avg", "exp_avg_sq")]
+                             stage, scale, fba.arch) for key in ("exp_avg", "exp_avg_sq")]
     return optimizer.param_groups[0]["step"], moments[0], moments[1]
 
 
@@ -276,8 +300,8 @@ def radam_state_from_jax(optimizer, stm: torch.nn.Module, fba: torch.nn.Module, 
     owned = {id(p) for p in optimizer.param_groups[0]["params"]}
     if len(owned) != sum(1 for net in (stm, fba) for _ in net.parameters()):
         raise KeyError("the optimizer's parameters are not both networks' parameters")
-    m_stm, m_fba = params_from_jax(exp_avg, stage, scale)
-    v_stm, v_fba = params_from_jax(exp_avg_sq, stage, scale)
+    m_stm, m_fba = params_from_jax(exp_avg, stage, scale, fba.arch)
+    v_stm, v_fba = params_from_jax(exp_avg_sq, stage, scale, fba.arch)
     for module, m, v in ((stm, m_stm, v_stm), (fba, m_fba, v_fba)):
         for name, p in module.named_parameters():
             if id(p) not in owned:
@@ -294,7 +318,9 @@ _JOINT_SKIP = ("IMG_MEAN", "IMG_STD", "LAPLOSS.KERNEL", "LOSS_TRIMAP.weight",
 
 def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """A released joint OTVM checkpoint (s3_OTVM.pth / s4_OTVM.pth: 'NET.*'
-    alpha + 'trimap.model.*' STM) -> the port's (STM, FBA) state_dicts."""
+    alpha + 'trimap.model.*' STM) -> the port's (STM, FBA) state_dicts.
+    The GN-WS FBA trunk only: the reference ships no resnet50_BN checkpoint,
+    and one (its 3-conv stem) is refused, as the JAX converter refuses it."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd and not isinstance(sd["state_dict"], torch.Tensor):
         sd = sd["state_dict"]
@@ -306,6 +332,8 @@ def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor
         if k.startswith("trimap.model."):
             stm_sd[k[len("trimap.model."):]] = v
         elif k.startswith("NET."):
+            if k.startswith("NET.encoder.conv2."):
+                raise KeyError("a resnet50_BN FBA checkpoint: load_pth reads GN-WS ones only")
             fba_sd[k[len("NET."):]] = v
         else:
             raise KeyError(f"unexpected checkpoint key {k}")

@@ -52,7 +52,8 @@
 //     memory, where Q and the ring were, and they merge through
 //     distributed shared memory.  Elsewhere (512p: the card holds only 15
 //     clusters of 8 blocks, and 16 tiles need 16) the grid is launched
-//     without clusters, all its blocks on the card at once, and the splits
+//     without clusters and cooperatively, all its blocks on the card at
+//     once (whatever other streams' kernels hold), and the splits
 //     merge through a workspace in L2 after a barrier of the tile's blocks
 //     in device memory.  The Pallas kernel carries the partials in VMEM
 //     over its sequential K/V grid axis instead (_flash_kernel's scratch
@@ -452,9 +453,12 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 // counts arrivals, bar[1] counts completed barriers.  Each reads the count
 // of completed barriers, arrives after a release fence, and waits for the
 // count to move; the last to arrive sets bar[0] back to 0 (for the next
-// launch) before it moves it.  Only a launch whose whole grid the card
-// holds at once may wait so (launch_geometry ensures it); a wait of more
-// than 2^32 cycles (~2 s) traps instead of hanging the card.
+// launch) before it moves it.  Only a launch whose whole grid is on the
+// card at once may wait so: launch_read launches such a grid cooperatively,
+// so the runtime makes every block resident before any runs, or refuses
+// the launch (another stream's kernel may hold SMs; launch_geometry also
+// checks the grid against the empty card); a wait of more than 2^32 cycles
+// (~2 s) traps instead of hanging the card.
 __device__ __forceinline__ void tile_barrier(unsigned* bar, int splits) {
     const unsigned done = ld_acquire(bar + 1);
     __threadfence();
@@ -1244,21 +1248,28 @@ struct Split {
 };
 
 // Sets the kernel's shared memory and fills `cfg` for a grid with clusters
-// of `blocks` blocks (1: no cluster).
+// of `blocks` blocks (1: no cluster), launched cooperatively where
+// `cooperative`: all its blocks resident at once, or the launch refused
+// (cudaErrorCooperativeLaunchTooLarge).
 template <typename Kernel>
-cudaError_t read_config(Kernel kernel, int smem, dim3 grid, int blocks, cudaStream_t stream,
-                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster) {
-    cluster.id = cudaLaunchAttributeClusterDimension;
-    cluster.val.clusterDim.x = 1;
-    cluster.val.clusterDim.y = 1;
-    cluster.val.clusterDim.z = blocks;
+cudaError_t read_config(Kernel kernel, int smem, dim3 grid, int blocks, bool cooperative,
+                        cudaStream_t stream, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+    if (blocks > 1) {
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.x = 1;
+        attr.val.clusterDim.y = 1;
+        attr.val.clusterDim.z = blocks;
+    } else {
+        attr.id = cudaLaunchAttributeCooperative;
+        attr.val.cooperative = 1;
+    }
     cfg = cudaLaunchConfig_t{};
     cfg.gridDim = grid;
     cfg.blockDim = dim3(THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
-    cfg.attrs = &cluster;
-    cfg.numAttrs = blocks > 1 ? 1 : 0;
+    cfg.attrs = &attr;
+    cfg.numAttrs = blocks > 1 || cooperative ? 1 : 0;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
@@ -1270,19 +1281,22 @@ cudaError_t cleared(cudaError_t err) {
 }
 
 // Launches `kernel` with its arguments up to `out`, then (hw, t, cv, the
-// split, scale_log2).
+// split, scale_log2).  A split merged through L2 (blocks == 1 < splits)
+// waits inside the launch for its tile's other blocks: it is launched
+// cooperatively.
 template <typename Kernel, typename T>
 cudaError_t launch_read(Kernel kernel, int smem, int cvt, const CUtensorMap* maps,
                         const void* mask, T* out, int batch, int hw, int t, int cv, Split sp,
                         float scale_log2, cudaStream_t stream) {
     cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute cluster;
+    cudaLaunchAttribute attr;
     const dim3 grid((hw + BQ - 1) / BQ, cv / cvt, batch * sp.splits);
     const uint8_t* mask_p = static_cast<const uint8_t*>(mask);
     void* args[] = {const_cast<CUtensorMap*>(&maps[0]), const_cast<CUtensorMap*>(&maps[1]),
                     const_cast<CUtensorMap*>(&maps[2]), &mask_p, &out, &hw, &t, &cv,
                     &sp.splits, &sp.blocks, &sp.part, &sp.bars, &scale_log2};
-    cudaError_t err = read_config(kernel, smem, grid, sp.blocks, stream, cfg, cluster);
+    cudaError_t err = read_config(kernel, smem, grid, sp.blocks, sp.blocks < sp.splits, stream,
+                                  cfg, attr);
     if (err == cudaSuccess) err = cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
     return err == cudaSuccess ? cudaGetLastError() : cleared(err);
 }
@@ -1292,8 +1306,8 @@ cudaError_t launch_read(Kernel kernel, int smem, int cvt, const CUtensorMap* map
 template <typename Kernel>
 cudaError_t max_clusters(Kernel kernel, int smem, int blocks, int* count) {
     cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute cluster;
-    cudaError_t err = read_config(kernel, smem, dim3(1, 1, blocks), blocks, 0, cfg, cluster);
+    cudaLaunchAttribute attr;
+    cudaError_t err = read_config(kernel, smem, dim3(1, 1, blocks), blocks, false, 0, cfg, attr);
     if (err == cudaSuccess && blocks > 1)
         err = cudaOccupancyMaxActiveClusters(count, (const void*)kernel, &cfg);
     if (err == cudaSuccess && blocks == 1) {
@@ -1372,8 +1386,10 @@ cudaError_t with_widths(int ck, int cv, Fn fn) {
 // through `part`, an fp32 workspace of splits * B * HW * (Cv + 2) floats,
 // and `bars`, 2 * B * ceil(HW / 128) * (Cv / CVT) uint32 counters (CVT =
 // 256, or 128 where Cv is not a multiple of 256), 0 before the first
-// launch (launches leave them fit for the next), and needs the whole grid
-// on the card at once.  Launches on `stream`, returns the launch's error.
+// launch (launches leave them fit for the next), and is launched
+// cooperatively: the whole grid on the card at once, or refused
+// (cudaErrorCooperativeLaunchTooLarge).  Launches on `stream`, returns the
+// launch's error.
 extern "C" int otvm_memory_read_f32(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, int batch, int hw, int t, int ck,
                                     int cv, int splits, int blocks, void* part, void* bars,

@@ -11,9 +11,10 @@ idle, the live K/V tiles are split across up to 8 blocks per output
 tile, which merge their partial results in the same launch: as one
 thread-block cluster a tile, through each other's shared memory, where
 the card holds those clusters in one wave; else through a workspace in
-L2, after a barrier of the tile's blocks.  The library is compiled with nvcc for sm_90a,
-with a plain C entry, on first use, into build/ at the root of the
-checkout, and loaded with ctypes.
+L2, after a barrier of the tile's blocks, in a cooperative launch (all
+its blocks resident at once, whatever else the card runs).  The library
+is compiled with nvcc for sm_90a, with a plain C entry, on first use,
+into build/ at the root of the checkout, and loaded with ctypes.
 
 `memory_read` takes the plain version for tensors on the CPU and the
 kernels for CUDA tensors; on CUDA it launches them or raises, and never
@@ -83,23 +84,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the memory-read kernel cannot be built")
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source and flags) and load the kernel library.
-    nvcc's output is kept beside the library, so `build_log` has ptxas's
-    report whether this call compiled or found the library built."""
-    global _lib, build_log, library_path
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
+def compile_library(src_path: Path) -> Tuple[Path, str]:
+    """nvcc `src_path` with NVCC_FLAGS into build/<stem>_<hash>.so, once per
+    source and flags -> (the library, nvcc's output).  The output is kept
+    beside the library as .log, so a later call that finds the library
+    built still has ptxas's report."""
+    src = src_path.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"memory_attn_{tag}.so"
+    so = _BUILD_DIR / f"{src_path.stem}_{tag}.so"
     log = so.with_suffix(".log")
     if not (so.exists() and log.exists()):
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src_path)],
                                   capture_output=True, text=True)
             out = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -109,7 +108,16 @@ def build() -> ctypes.CDLL:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    build_log = log.read_text()
+    return so, log.read_text()
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source and flags) and load the kernel library;
+    `build_log` has ptxas's report."""
+    global _lib, build_log, library_path
+    if _lib is not None:
+        return _lib
+    so, build_log = compile_library(_SRC)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.otvm_memory_read_f32.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 3
@@ -145,7 +153,9 @@ def launch_geometry(b: int, hw: int, t: int, cv: int, dtype: torch.dtype,
     row) is read by `splits` blocks, merged inside the kernel: as one
     cluster a tile (blocks = splits), or without clusters through L2
     (blocks = 1), which needs the grid's tiles x splits blocks on the card
-    at once.  `max_clusters` is the card's figure for this kernel
+    at once (the kernel launches it cooperatively: where another stream's
+    kernels hold SMs, it waits until the whole grid is resident).
+    `max_clusters` is the card's figure for this kernel
     (`max_active_clusters`): {n: clusters of n blocks it holds at once; 1:
     blocks}.  The split count is the largest up to 8 that gives each split
     at least MIN_TILES_PER_SPLIT of the dtype's K/V tiles of the bank and

@@ -16,8 +16,13 @@ import torch.nn as nn
 
 from ..nn.layers import Conv, GroupNorm32, WSConv
 from ..nn.ops import resize_bilinear, upsample_x2
+from ..nn.resnet_bn import ResNet50DilatedBN
 from ..nn.resnet_gn_ws import BasicBlockGN, ResNet50DilatedGNWS
 
+# build_encoder's trunks (models.py:49-66), as otvm_tpu/models/fba.py's
+# ENCODER_ARCHS: resnet18/34_GN_WS exist in the reference but are never
+# selected, so an arch outside this table raises
+ENCODER_ARCHS = {"resnet50_GN_WS": ResNet50DilatedGNWS, "resnet50_BN": ResNet50DilatedBN}
 FEAT_DIM = 2048
 DEC_DIM = 256
 POOL_SCALES = (1, 2, 3, 6)
@@ -114,16 +119,28 @@ class FBA(nn.Module):
       multiples of 8; img [B, H, W, 3] in [0, 1]; two_chan_trimap [B, H, W, 2].
     Returns NHWC (output7, hid16, refine_output7, refine_trimap3); the refine
     outputs are None without refinement (stages 1-2).
+    arch: the encoder trunk, a key of ENCODER_ARCHS.  The decoder's last
+    skip takes the trunk's stem width (GN-WS 64, BN 128).  Only the GN-WS
+    trunk has the width-scaled variant (scale > 1), as in the JAX package.
     """
 
-    def __init__(self, refinement: bool = False, scale: int = 1):
+    def __init__(self, refinement: bool = False, scale: int = 1,
+                 arch: str = "resnet50_GN_WS"):
         super().__init__()
+        if arch not in ENCODER_ARCHS:
+            raise KeyError(f"unknown FBA arch {arch!r} (want one of {sorted(ENCODER_ARCHS)})")
         self.refinement = refinement
         self.scale = scale
+        self.arch = arch
         w = 64 // scale
-        blocks = (3, 4, 6, 3) if scale == 1 else (1, 1, 1, 1)
-        self.encoder = ResNet50DilatedGNWS(width=w, blocks=blocks)
-        self.decoder = FBADecoder(feat_dim=32 * w, l1_ch=4 * w, c1_ch=w,
+        if arch == "resnet50_GN_WS":
+            blocks = (3, 4, 6, 3) if scale == 1 else (1, 1, 1, 1)
+            self.encoder = ResNet50DilatedGNWS(width=w, blocks=blocks)
+        elif scale != 1:
+            raise TypeError(f"FBA arch {arch!r} has no width-scaled variant (scale {scale})")
+        else:
+            self.encoder = ENCODER_ARCHS[arch]()
+        self.decoder = FBADecoder(feat_dim=32 * w, l1_ch=4 * w, c1_ch=self.encoder.c1_channels,
                                   dec_dim=DEC_DIM // scale)
         if refinement:
             self.refine = RefinementModule()

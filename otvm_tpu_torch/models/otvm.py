@@ -5,7 +5,10 @@ EvalModel.forward, models/alpha/model.py:391-512): segment with the memory
 bank -> softmax -> trimap features (argmax, JFA EDT, clicks) -> FBA with
 refinement -> memorize -> bank update.  Flags are Python bools and the bank
 count a host int, so a frame is enqueued on the device without waiting for
-it.  `joint_train_forward` (alpha FullModel.forward, stages 1-4) and
+it.  `eval_chunk_step` runs T frames of it in one call, `alpha_predict` is
+FBA on a given trimap (stages 1-2), `trimap_eval_step` the STM alone
+(stage-1 trimap propagation).  `joint_train_forward` (alpha
+FullModel.forward, stages 1-4) and
 `trimap_train_forward` (the stage-1 trimap FullModel) are the training
 forwards with their losses.  Arrays are NHWC, as in the JAX package.
 """
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import functools
 import itertools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -28,31 +31,34 @@ from .memory import MemoryBank, init_bank, update_bank
 from .stm import KEY_DIM, STM, VAL_DIM, normalize_image
 
 
-def make_trimap_features(tri3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def make_trimap_features(tri3: torch.Tensor, exact_edt: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tri3 [B, H, W, 3] soft trimap -> (feats8 [B, H, W, 8], trimask
     [B, H, W, 1]).  feats8 = [bg clicks x3, fg clicks x3, soft bg, soft fg];
-    trimask = the hard unknown region (argmax == 1)."""
+    trimask = the hard unknown region (argmax == 1).  exact_edt: the clicks
+    from the exact EDT instead of the JFA."""
     am = argmax_small(tri3)
     t2 = torch.stack([(am == 0), (am == 2)], dim=-1).float()
-    clicks = trimap_clicks(t2)
+    clicks = trimap_clicks(t2, exact=exact_edt)
     soft = torch.stack([tri3[..., 0], tri3[..., 2]], dim=-1)
     feats = torch.cat([clicks.to(tri3.dtype), soft], dim=-1)
     trimask = (am == 1).to(tri3.dtype)[..., None]
     return feats, trimask
 
 
-def make_models(stage: int = 4, scale: int = 1, stm_norm: str = "frozen_bn"
-                ) -> Tuple[STM, FBA]:
-    """The (STM, FBA) pair of a stage, on the CPU, with torch's default init."""
+def make_models(stage: int = 4, scale: int = 1, stm_norm: str = "frozen_bn",
+                arch: str = "resnet50_GN_WS") -> Tuple[STM, FBA]:
+    """The (STM, FBA) pair of a stage, FBA on the `arch` trunk, on the CPU,
+    with torch's default init."""
     refinement = stage > 2
     return (STM(hdim=16 if refinement else -1, scale=scale, norm=stm_norm),
-            FBA(refinement=refinement, scale=scale))
+            FBA(refinement=refinement, scale=scale, arch=arch))
 
 
-def init_models(seed: int = 0, stage: int = 4, scale: int = 1,
-                stm_norm: str = "frozen_bn") -> Tuple[STM, FBA]:
+def init_models(seed: int = 0, stage: int = 4, scale: int = 1, stm_norm: str = "frozen_bn",
+                arch: str = "resnet50_GN_WS") -> Tuple[STM, FBA]:
     """make_models with flax-default random weights drawn from `seed`."""
-    stm, fba = make_models(stage, scale, stm_norm)
+    stm, fba = make_models(stage, scale, stm_norm, arch)
     g = torch.Generator().manual_seed(seed)
     init_flax_style(stm, g)
     init_flax_style(fba, g)
@@ -69,14 +75,15 @@ class EvalOutput(NamedTuple):
 def eval_frame_step(stm: STM, fba: FBA, bank: MemoryBank, frame01: torch.Tensor,
                     first_trimap3: torch.Tensor, first_frame: bool, memorize: bool,
                     last_frame: bool, max_memory_num: int = 5, wire_u8_out: bool = False,
-                    memory_impl: Optional[str] = None) -> EvalOutput:
+                    memory_impl: Optional[str] = None, exact_edt: bool = False) -> EvalOutput:
     """One frame of streaming joint inference, on the device of its inputs.
 
     frame01 [B, H, W, 3] in [0, 1] (or uint8 0..255, decoded here in fp32
     and cast to the serving dtype), H and W multiples of 32.
     first_trimap3 [B, H, W, 3]: the GT trimap, read only on the first frame.
     The bank is updated in place.  memory_impl goes to memory_read (None:
-    the kernel on CUDA, the plain version on the CPU)."""
+    the kernel on CUDA, the plain version on the CPU); exact_edt to
+    make_trimap_features."""
     if frame01.dtype == torch.uint8:
         frame01 = (frame01.float() / 255.0).to(first_trimap3.dtype)
     refinement = fba.refinement
@@ -87,7 +94,7 @@ def eval_frame_step(stm: STM, fba: FBA, bank: MemoryBank, frame01: torch.Tensor,
                              memory_impl=memory_impl)
         trimap3 = torch.softmax(logits, dim=-1)
 
-    feats8, _ = make_trimap_features(trimap3)
+    feats8, _ = make_trimap_features(trimap3, exact_edt)
     x11 = torch.cat([normalize_image(frame01), feats8], dim=-1)
     out7, hid, rout7, rtri = fba(x11, frame01, feats8[..., -2:])
     alpha = (rout7 if refinement else out7)[..., 0:1]
@@ -105,6 +112,72 @@ def eval_frame_step(stm: STM, fba: FBA, bank: MemoryBank, frame01: torch.Tensor,
         tri_label = torch.argmax(out_trimap, dim=-1).to(torch.uint8)
         return EvalOutput(bank, alpha_u8, tri_label)
     return EvalOutput(bank, alpha, out_trimap)
+
+
+@torch.no_grad()
+def eval_chunk_step(stm: STM, fba: FBA, bank: MemoryBank, frames01: torch.Tensor,
+                    first_trimap3: torch.Tensor, first_flags: Sequence[bool],
+                    memorize_flags: Sequence[bool], last_flags: Sequence[bool],
+                    max_memory_num: int = 5, exact_edt: bool = False,
+                    memory_impl: Optional[str] = None
+                    ) -> Tuple[MemoryBank, torch.Tensor, torch.Tensor]:
+    """T frames of `eval_frame_step` in one call, with per-frame flags:
+    the per-frame protocol, frame for frame (JAX's lax.scan over the same
+    body).  frames01 [T, B, H, W, 3], uint8 or in [0, 1].  Returns (bank,
+    alphas [T, B, H, W, 1], trimaps [T, B, H, W, 3]); as in JAX, no
+    wire_u8_out on this path."""
+    alphas, trimaps = [], []
+    for frame, first, mem, last in zip(frames01, first_flags, memorize_flags, last_flags):
+        out = eval_frame_step(stm, fba, bank, frame, first_trimap3, first, mem, last,
+                              max_memory_num, memory_impl=memory_impl, exact_edt=exact_edt)
+        bank = out.bank
+        alphas.append(out.alpha)
+        trimaps.append(out.trimap)
+    return bank, torch.stack(alphas), torch.stack(trimaps)
+
+
+@torch.no_grad()
+def alpha_predict(fba: FBA, frame01: torch.Tensor, trimap3: torch.Tensor,
+                  exact_edt: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FBA on a given trimap (the stage-1/2 eval, models/alpha/model.py:419,
+    456-457; the trimap network is not run): frame01 [B, H, W, 3], uint8
+    (decoded in fp32, then cast to trimap3's dtype) or in [0, 1]; trimap3
+    [B, H, W, 3].  Returns (alpha [B, H, W, 1], fba7 [B, H, W, 7]): the
+    refinement head's where the network has one, else the decoder's."""
+    if frame01.dtype == torch.uint8:
+        frame01 = (frame01.float() / 255.0).to(trimap3.dtype)
+    feats8, _ = make_trimap_features(trimap3, exact_edt)
+    x11 = torch.cat([normalize_image(frame01), feats8], dim=-1)
+    out7, _, rout7, _ = fba(x11, frame01, feats8[..., -2:])
+    pred = rout7 if fba.refinement else out7
+    return pred[..., 0:1], pred
+
+
+@torch.no_grad()
+def trimap_eval_step(stm: STM, bank: MemoryBank, frame01: torch.Tensor,
+                     first_trimap3: torch.Tensor, first_frame: bool, memorize: bool,
+                     max_memory_num: int = 5, memorize_gt: bool = False
+                     ) -> Tuple[MemoryBank, torch.Tensor]:
+    """Trimap propagation alone (trimap FullModel_eval stage 1,
+    models/trimap/model.py:173-281), with the stage-1 STM (hdim -1): the GT
+    trimap on the first frame, else segment over the bank and softmax; then
+    memorize this frame, every frame, with its predicted trimap (the GT
+    one with memorize_gt) and update the bank (in place).  With
+    memorize_gt an overflow evicts slot 0 instead of keeping it
+    (model.py:215-221).  frame01 [B, H, W, 3] in [0, 1].  Returns (bank,
+    trimap3 [B, H, W, 3])."""
+    if stm.hdim > 0:
+        raise ValueError("trimap_eval_step runs the stage-1 STM (hdim -1)")
+    if first_frame:
+        pred = first_trimap3
+    else:
+        logits = stm.segment(frame01, bank.keys, bank.values, bank.slot_mask)
+        pred = torch.softmax(logits, dim=-1)
+    mem_tri = first_trimap3 if memorize_gt else pred
+    k, v = stm.memorize(frame01, mem_tri[..., 1], mem_tri[..., 2])
+    bank = update_bank(bank, k, v, first_frame, memorize, max_memory_num,
+                       keep_first=not memorize_gt)
+    return bank, pred
 
 
 def make_eval_bank(batch: int, height: int, width: int, max_memory_num: int = 5,
@@ -140,7 +213,8 @@ def _checkpointed(fn):
 
 
 def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stage: int,
-                        compute_dtype: Optional[torch.dtype] = None, remat: bool = False):
+                        compute_dtype: Optional[torch.dtype] = None, remat: bool = False,
+                        exact_edt: bool = False):
     """Training forward and loss of stage 1-4 (alpha FullModel.forward,
     models/alpha/model.py:189-312), on the device of the modules and batch.
 
@@ -158,7 +232,7 @@ def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stag
     masters, and ground truth and the loss arithmetic stay fp32.
     remat=True recomputes each network call and frame loss in the backward
     pass (torch.utils.checkpoint), as the JAX package's OTVM_REMAT=1 does:
-    the reads then run twice."""
+    the reads then run twice.  exact_edt: the clicks from the exact EDT."""
     refinement = stage > 2
     if fba.refinement != refinement or (stm.hdim > 0) != refinement:
         raise ValueError(f"the models do not match stage {stage}")
@@ -187,7 +261,7 @@ def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stag
     mem_k, mem_v = [], []
 
     for t in range(S):
-        feats8, _ = make_trimap_features(preds_trimap[t])
+        feats8, _ = make_trimap_features(preds_trimap[t], exact_edt)
         x11 = torch.cat([normalize_image(img_c[:, t]), feats8], dim=-1)
         out7, hid, rout7, rtri = fba_call(x11, img_c[:, t], feats8[..., -2:])
         outs[t], routs[t] = out7, rout7

@@ -20,10 +20,17 @@ Distances are sums of squares of integers below 2^12, exact in fp32.
 That is ~540 small ops for a 512x512 pair of maps, and eager mode spends
 host time on each.  On a CUDA card the ops are captured once per input
 shape into a CUDA graph and replayed: one launch from the host.
+
+`edt_sq_exact` is JAX's exact separable transform, bit for bit: a 1-D
+distance along each row, then the column pass min over y' of
+(y - y')^2 + g(y', x)^2.  JAX broadcasts that pass over [H, H', W] (512 MB
+a map at 512x512); here it runs over blocks of y', the temporary capped at
+EXACT_TEMP_BYTES.  A min is order-free, so the blocks change no bit.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -88,12 +95,50 @@ def _jfa(seeds: torch.Tensor) -> torch.Tensor:
     return torch.where(inner(src)[0] == _FAR, _BIG, best)
 
 
-def trimap_clicks(trimap2: torch.Tensor) -> torch.Tensor:
+_ROW_FAR = 1_000_000     # JAX's 1-D distance before the first seed of a row
+EXACT_TEMP_BYTES = 64 << 20     # the column pass's temporary, at most
+
+
+def edt_sq_exact(seeds: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
+    """Exact squared distance to the nearest True pixel (JAX's
+    `edt_sq_exact`).  seeds [N, H, W] bool -> [N, H, W] fp32; 1e12 for a
+    map without seeds.  `block`: rows y' a step of the column pass (default:
+    as many as EXACT_TEMP_BYTES holds)."""
+    n, h, w = seeds.shape
+    dev = seeds.device
+    xs = torch.arange(w, device=dev)
+    # JAX's scans from a carry of 1e6: +1 a pixel, 0 at a seed; integers, so
+    # exact in fp32 (below 2^24)
+    last = torch.where(seeds, xs, -1).cummax(dim=-1).values
+    nxt = torch.where(seeds, xs, w).flip(-1).cummin(dim=-1).values.flip(-1)
+    fwd = torch.where(last >= 0, xs - last, _ROW_FAR + 1 + xs)
+    bwd = torch.where(nxt < w, nxt - xs, _ROW_FAR + w - xs)
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    g = torch.minimum(fwd, bwd).float()
+    g2 = torch.minimum(g * g, big)                                  # [N, H', W]
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
+    dy2 = (ys[:, None] - ys[None, :]) ** 2                          # [H, H']
+    if block is None:
+        block = max(1, EXACT_TEMP_BYTES // (4 * n * h * w))
+    d = torch.full((n, h, w), math.inf, device=dev)
+    for lo in range(0, h, block):
+        hi = min(lo + block, h)
+        part = (dy2[None, :, lo:hi, None] + g2[:, None, lo:hi, :]).amin(dim=2)
+        torch.minimum(d, part, out=d)
+    return torch.minimum(d, big)
+
+
+def edt_sq(seeds: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    return edt_sq_exact(seeds) if exact else edt_sq_jfa(seeds)
+
+
+def trimap_clicks(trimap2: torch.Tensor, exact: bool = False) -> torch.Tensor:
     """utils/utils.py:25-39 on NHWC.  trimap2 [B, H, W, 2] binary (bg, fg)
-    -> clicks [B, H, W, 6] = [bg s1, bg s2, bg s3, fg s1, fg s2, fg s3]."""
+    -> clicks [B, H, W, 6] = [bg s1, bg s2, bg s3, fg s1, fg s2, fg s3].
+    exact: the exact EDT instead of the JFA."""
     b, h, w, _ = trimap2.shape
     seeds = (trimap2.permute(0, 3, 1, 2) > 0.5).reshape(b * 2, h, w)
-    d2 = edt_sq_jfa(seeds).reshape(b, 2, h, w)
+    d2 = edt_sq(seeds, exact).reshape(b, 2, h, w)
     feats = [torch.exp(-d2[:, k] / (2.0 * sigma * sigma))
              for k in range(2) for sigma in _SIGMAS]
     return torch.stack(feats, dim=-1)

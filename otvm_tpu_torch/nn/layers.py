@@ -68,7 +68,7 @@ class FrozenBatchNorm(nn.BatchNorm2d):
 
 
 class _Affine(nn.Module):
-    """A FrozenBatchNorm folded once: y = x * inv + shift."""
+    """A frozen norm folded once: y = x * inv + shift."""
 
     def __init__(self, inv: torch.Tensor, shift: torch.Tensor):
         super().__init__()
@@ -83,7 +83,8 @@ class _Affine(nn.Module):
 def freeze_for_inference(module: nn.Module) -> nn.Module:
     """In place, for serving weights that no longer change: every WSConv
     becomes a Conv2d holding its standardized kernel (in the weight's dtype,
-    as forward casts it), every FrozenBatchNorm an affine holding its folded
+    as forward casts it), every frozen norm (FrozenBatchNorm, the BN FBA
+    trunk's BNAffine: whatever has `folded()`) an affine holding its folded
     scale and shift.  Each is computed once, exactly as forward computes it
     on every call, so outputs are unchanged and a frame launches ~half as
     many kernels.  Returns the module."""
@@ -97,7 +98,7 @@ def freeze_for_inference(module: nn.Module) -> nn.Module:
             if child.bias is not None:
                 conv.bias.copy_(child.bias)
             setattr(module, name, conv.requires_grad_(False))
-        elif isinstance(child, FrozenBatchNorm):
+        elif callable(getattr(child, "folded", None)):
             setattr(module, name, _Affine(*child.folded()))
         else:
             freeze_for_inference(child)

@@ -75,6 +75,7 @@ class ResNet50DilatedGNWS(nn.Module):
                  in_ch: int = 11):
         super().__init__()
         w, b = width, blocks
+        self.c1_channels = w        # the stem's output, the decoder's last skip
         self.conv1 = WSConv(in_ch, w, 7, 2, 3, bias=False)
         self.bn1 = GroupNorm32(w)
         self.layer1 = _dilated_layer(w, w, b[0], 1, 1, 1)

@@ -1,7 +1,7 @@
 """Where the time of the port's stage-4 stream goes, on one CUDA card.
 
     python -m otvm_tpu_torch.tools.profile_stream [--dtype bf16] [--frames 20]
-        [--size 512] [--out build/profile_stream.json]
+        [--size 512] [--serving ROUNDS] [--out build/profile_stream.json]
 
 Two views of the full-width stream (random weights from a seed, a bank of
 at most 5, memorize every 10th frame):
@@ -10,7 +10,13 @@ at most 5, memorize every 10th frame):
     A stage whose host enqueue is slower than its device work shows its
     enqueue time here;
   * a torch.profiler trace of run_video: device time by kernel, launches
-    per frame, and the device's busy share of the wall clock.
+    per frame, the device's busy share of the wall clock, and the host's
+    busiest ops.
+--serving R adds the ways to serve three clips (30, 17 and 30 frames):
+run_video on each in turn, frame by frame; the same with chunk 8; and
+MultiStreamEvaluator.run_videos on all three, round-robin.  Frames/s on
+the wall clock in R rounds of alternating turns (serial, multi, chunk 8,
+chunk 8, multi, serial), then one trace of each.
 Needs a CUDA card; it does not run on the CPU.
 """
 from __future__ import annotations
@@ -24,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from ..eval.runner import EvalProtocol, StreamingEvaluator
+from ..eval.runner import EvalProtocol, MultiStreamEvaluator, StreamingEvaluator
 from ..kernels.memory_attn import memory_read
 from ..models.memory import update_bank
 from ..models.otvm import eval_frame_step, init_models, make_eval_bank, make_trimap_features
@@ -92,27 +98,80 @@ def device_kernels(prof):
     return kernels, sum(_self_device_us(e) for e in kernels) / 1e3
 
 
-def trace(ev: StreamingEvaluator, frames, tri, top: int):
+def trace(run, n_frames: int, top: int):
+    """Profile run(), which serves n_frames frames."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ev.run_video(frames, tri)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     dev = _self_device_us
     kernels, busy_ms = device_kernels(prof)
+    host = [e for e in prof.key_averages()
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")]
+    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
-        "device_ops_per_frame": sum(e.count for e in kernels) / len(frames),
+        "device_ops_per_frame": sum(e.count for e in kernels) / n_frames,
         "top": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "count": e.count}
                 for e in kernels[:top]],
         # the port's own kernels (memory_read_*), wherever they rank
         "memory_kernels": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "count": e.count}
                            for e in kernels if "memory_read" in e.key],
+        # host ops by their own CPU time (children excluded), per frame
+        "host_top": [{"name": e.key[:90], "self_cpu_ms_per_frame":
+                      e.self_cpu_time_total / 1e3 / n_frames, "count_per_frame": e.count / n_frames}
+                     for e in host[:top]],
     }
+
+
+def serving(stm_sd, fba_sd, dtype: str, clips, tri, rounds: int, top: int):
+    """Three ways to serve `clips`, timed in alternating turns, then a
+    trace of each (see the module's docstring)."""
+    proto = dict(memory_max_num=5, memory_skip_frame=10, dtype=dtype)
+    per_frame = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(**proto))
+    chunked = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(chunk=8, **proto))
+    n = sum(len(c) for c in clips)
+    videos = [dict(frames=c, first_trimap=tri) for c in clips]
+
+    def in_turn(ev):
+        for c in clips:
+            ev.run_video(c, tri)
+
+    runs = {"serial": lambda: in_turn(per_frame), "multi": lambda: per_frame.run_videos(videos),
+            "chunk8": lambda: in_turn(chunked)}
+    fps = {name: [] for name in runs}
+    for run in runs.values():                         # warm-up
+        run()
+    for _ in range(rounds):
+        for name in ("serial", "multi", "chunk8", "chunk8", "multi", "serial"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            fps[name].append(n / (time.perf_counter() - t0))
+    return {"frames": n, "frames_per_s": fps,
+            "trace": {name: trace(run, n, top) for name, run in runs.items()}}
+
+
+def random_clip(n: int, size: int, seed: int):
+    rng = np.random.RandomState(seed)
+    return [rng.rand(size, size, 3).astype(np.float32) for _ in range(n)]
+
+
+def _print_trace(t):
+    print(f"  trace: wall {t['wall_ms']:.1f} ms, device busy {t['device_busy_ms']:.1f} ms "
+          f"({t['device_busy_share']:.1%}), {t['device_ops_per_frame']:.0f} device ops/frame")
+    for e in t["top"]:
+        print(f"  {e['device_ms']:9.3f} ms {e['count']:6d}x  {e['name']}")
+    for e in t["memory_kernels"]:
+        print(f"  memory read: {e['device_ms']:9.3f} ms {e['count']:6d}x  {e['name']}")
+    for e in t["host_top"]:
+        print(f"  host {e['self_cpu_ms_per_frame']:8.3f} ms/frame {e['count_per_frame']:7.1f}x  "
+              f"{e['name']}")
 
 
 def main():
@@ -122,6 +181,7 @@ def main():
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--serving", type=int, default=0, metavar="ROUNDS")
     ap.add_argument("--out", default="build/profile_stream.json")
     args = ap.parse_args()
 
@@ -132,8 +192,7 @@ def main():
     ev = StreamingEvaluator(stm.state_dict(), fba.state_dict(),
                             EvalProtocol(memory_max_num=5, memory_skip_frame=10,
                                          dtype=args.dtype))
-    rng = np.random.RandomState(0)
-    frames = [rng.rand(args.size, args.size, 3).astype(np.float32) for _ in range(args.frames)]
+    frames = random_clip(args.frames, args.size, 0)
     tri = np.zeros((args.size, args.size, 3), np.float32)
     s = args.size
     tri[..., 0] = 1.0
@@ -144,18 +203,24 @@ def main():
     _, _, fps = ev.run_video(frames, tri)
     result = {"card": card, "dtype": args.dtype, "size": args.size, "frames": args.frames,
               "fps": fps, "stage_ms": stage_times(ev, args.size, args.reps),
-              "trace": trace(ev, frames, tri, args.top)}
+              "trace": trace(lambda: ev.run_video(frames, tri), len(frames), args.top)}
     print(f"card: {card}; {args.dtype} {args.size}x{args.size}, {args.frames} frames: "
           f"{fps:.2f} frames/s")
     for name, ms in result["stage_ms"].items():
         print(f"  {ms:9.3f} ms  {name}")
-    t = result["trace"]
-    print(f"  trace: wall {t['wall_ms']:.1f} ms, device busy {t['device_busy_ms']:.1f} ms "
-          f"({t['device_busy_share']:.1%}), {t['device_ops_per_frame']:.0f} device ops/frame")
-    for e in t["top"]:
-        print(f"  {e['device_ms']:9.3f} ms {e['count']:6d}x  {e['name']}")
-    for e in t["memory_kernels"]:
-        print(f"  memory read: {e['device_ms']:9.3f} ms {e['count']:6d}x  {e['name']}")
+    _print_trace(result["trace"])
+    if args.serving:
+        del ev
+        clips = [random_clip(n, args.size, seed) for n, seed in ((30, 0), (17, 1), (30, 0))]
+        sv = result["serving"] = serving(stm.state_dict(), fba.state_dict(), args.dtype, clips,
+                                         tri, args.serving, args.top)
+        print(f"serving {sv['frames']} frames of 3 clips, {args.dtype}, frames/s by turn:")
+        for name, fps_ in sv["frames_per_s"].items():
+            print(f"  {name:7s} " + " ".join(f"{x:.3f}" for x in fps_)
+                  + f"  (median {np.median(fps_):.3f})")
+        for name, t in sv["trace"].items():
+            print(f"  {name}:")
+            _print_trace(t)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -66,16 +66,14 @@ def make_optimizer(cfg: Config, stm: STM, fba: FBA, iters_per_epoch: int) -> RAd
 
 def init_train_state(cfg: Config, seed: int = 0, iters_per_epoch: int = 1,
                      device=None) -> TrainState:
-    """Both networks of cfg.train.stage with random weights drawn from
-    `seed` (flax's default init), on CUDA unless `device` says otherwise,
+    """Both networks of cfg.train.stage (FBA on cfg.alpha.arch's trunk) with
+    random weights drawn from `seed` (flax's default init), on CUDA unless `device` says otherwise,
     the frozen one (stage 2 or 3) without gradients, and a fresh optimizer.
     fp32 runs with TF32 off (set_fp32_numerics), as the JAX reference
     does at its highest precision."""
-    if cfg.alpha.arch != "resnet50_GN_WS":
-        raise NotImplementedError(f"FBA trunk {cfg.alpha.arch!r} is not ported")
     device = resolve_device(device)
     set_fp32_numerics()
-    stm, fba = init_models(seed, cfg.train.stage, cfg.model_scale, cfg.stm_norm)
+    stm, fba = init_models(seed, cfg.train.stage, cfg.model_scale, cfg.stm_norm, cfg.alpha.arch)
     stm, fba = stm.to(device), fba.to(device)
     trainable = stage_trainable_mask(cfg.train.stage)
     stm.requires_grad_(trainable["stm"])

@@ -476,3 +476,37 @@ def test_memory_read_carries_a_gradient_on_cuda(request, dtype, t):
                                      ("grad_control_rel_err", min(e[1] for e in errs))]
     with pytest.raises(RuntimeError, match="no gradient"):
         ma.memory_read_cuda(*leaves)
+
+
+@pytest.mark.cuda
+def test_l2_merge_waits_for_sms_another_stream_holds():
+    """The L2 merge's blocks wait for their tile's other splits inside the
+    launch, so its grid is launched cooperatively.  A kernel on a second
+    stream holds 40 SMs for 4 s (200 KB of shared memory a block: no read
+    block fits beside one); a forced L2 read at 512p fp32 (8 splits, 128
+    blocks, more than the 92 SMs left) must wait until its whole grid is
+    resident, then give the plain read's result.  Launched without the
+    attribute, part of the grid spins at the barrier and traps after
+    2^32 cycles, which ends the CUDA context: so the case runs in a child
+    process (otvm_tpu_torch/tools/coresidency.py)."""
+    _cuda_ready()
+    from otvm_tpu_torch.tools import coresidency
+
+    res = coresidency.run_case()
+    assert res.get("held_resident") == coresidency.HELD, res
+    assert res.get("finished"), res
+    assert res["rel_err"] <= READ_TOL[torch.float32], res
+    assert not res["hold_running_at_read_end"], res      # it waited for the held SMs
+
+
+@pytest.mark.cuda
+def test_l2_merge_read_replays_from_a_cuda_graph():
+    """A cooperative launch captures in a CUDA graph: one forced L2 read,
+    its workspace made on the capture stream first, replays to the eager
+    read's bits (in a child process, as a failed capture may leave the
+    context unusable)."""
+    _cuda_ready()
+    from otvm_tpu_torch.tools import coresidency
+
+    res = coresidency.run_child(coresidency._THIS_ROOT, "graph")
+    assert res.get("captured") and res.get("replay_bit_identical"), res

@@ -251,3 +251,21 @@ def test_bf16_compute_reaches_fp32_masters():
     with torch.no_grad():
         fp32, _ = joint_train_forward(stm, fba, batch, 4)
     assert abs(total.item() - fp32.item()) <= 0.1 * fp32.item()
+
+
+def test_joint_train_forward_exact_edt_matches_jax():
+    """Stage 4 with the clicks from the exact EDT (exact_edt=True, bit-exact
+    with JAX's: tests/test_torch_edt.py): the losses against JAX's forward
+    on the same weights and batch, rtol 1e-5."""
+    stm, fba = init_models(seed=4, stage=4, scale=SCALE)
+    stm_vars, fba_vars = to_jax(stm.state_dict(), fba.state_dict(), 4, SCALE)
+    batch = _batch(14, H, W)
+    total, aux = jax.jit(lambda s, f, b: jax_joint_train_forward(
+        s, f, b, 4, exact_edt=True, scale=SCALE))(
+        stm_vars, fba_vars, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, got_aux = joint_train_forward(stm, fba, _torch_batch(batch), 4, exact_edt=True)
+    np.testing.assert_allclose(got.item(), float(total), rtol=1e-5)
+    for k in LOSSES:
+        np.testing.assert_allclose(got_aux[k].item(), float(aux[k]), rtol=1e-5, atol=1e-7,
+                                   err_msg=k)

@@ -298,6 +298,9 @@ def test_init_train_state_needs_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.init_train_state(_cfg(1))
     cfg = _cfg(1)
-    cfg.alpha.arch = "resnet50_BN"
-    with pytest.raises(NotImplementedError):
+    cfg.alpha.arch = "resnet50_BN"          # no width-scaled BN trunk, in either package
+    with pytest.raises(TypeError):
+        T.init_train_state(cfg, device="cpu")
+    cfg.alpha.arch = "resnet18_GN_WS"       # not a trunk the reference selects
+    with pytest.raises(KeyError):
         T.init_train_state(cfg, device="cpu")
