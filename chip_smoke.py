@@ -64,7 +64,19 @@ Phases, in order; any failure exits non-zero:
      TrimapEvaluator with the stage-1 STM (29 reads in lockstep) and
      trimap_eval_step(memorize_gt) over 8 frames with a bank of 2 (slot 0
      evicted); stage 2 on given trimaps (no read); and a stage-4 stream on
-     the resnet50_BN FBA trunk (6 frames, 5 reads in lockstep).
+     the resnet50_BN FBA trunk (6 frames, 5 reads in lockstep);
+  8. the command-line entry points (otvm_tpu_torch/cli/) at full width,
+     in this process through each one's main(argv), in a temporary working
+     directory: scripts/make_synth_data.py writes 512x640 DIM images and
+     VM108 clips (8 train, 2 val, 12 frames), a demo tree is made from the
+     val clips; the Loader's rate at 8 and 2 threads; fp32 training at the
+     recipe's crop and batch: train_s1_trimap (2 steps), stage 2 from its
+     STM, stage 4 from stage 2, then --resume of stage 4, each with finite
+     losses and 2 reads a step (every read checked in lockstep); then the
+     eval CLI on those checkpoints over both val clips: stage 4 (22 reads
+     in lockstep, 7 finite metrics), --streams 2 (the same PNG bytes),
+     --trimap-net (22 reads, a finite IoU), --stage 2 on given trimaps (0
+     reads), --demo --viz (strips written); 12 PNGs a clip each.
 The line before the last is a JSON object with the kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -466,7 +478,8 @@ def train_phase(torch, ma, card):
         wall_ms.append(w)
     out.update(step_ms=float(np.median(ev_ms)), step_wall_ms=float(np.median(wall_ms)),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    state, trace = profile_step(step, state, batches[-1])
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase6_trace")
+    state, trace = profile_step(step, state, batches[-1], trace_dir)
     busy_ms, read_ms, bwd_ms = trace["device_busy_ms"], trace["read_ms"], trace["read_backward_ms"]
     out.update(profiled_device_ms=busy_ms, profiled_read_ms=read_ms, profiled_read_bwd_ms=bwd_ms)
     print(f"  fp32 stage-4 step, {TRAIN_HW}x{TRAIN_HW}, B {TRAIN_B}, S {TRAIN_S}: "
@@ -475,7 +488,8 @@ def train_phase(torch, ma, card):
           f"peak memory {out['peak_gb']:.2f} GB, on {card}")
     share = lambda ms: f"{ms:.3f} ms ({ms / busy_ms:.3%})" if ms and busy_ms else "not measured"
     print(f"  profiled step: device {busy_ms:.1f} ms, read kernels {share(read_ms)}, read "
-          f"backward {share(bwd_ms)}")
+          f"backward {share(bwd_ms)}; Chrome trace build/phase6_trace/trace.json "
+          f"({os.path.getsize(os.path.join(trace_dir, 'trace.json')) / 1e6:.1f} MB)")
 
     # bf16: the same state; bf16 copies of the weights feed the networks
     cfg.train.bf16 = True
@@ -665,6 +679,196 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     return out
 
 
+# phase 8's fixture: scripts/make_synth_data.py's 512x640 clips and images
+SYNTH_ARGS = ["--n-train", "8", "--n-val", "2", "--frames", "12", "--dim-fg", "8",
+              "--dim-bg", "8", "--seed", "0"]
+SYNTH_FRAMES, SYNTH_HW = 12, (512, 640)
+
+
+def write_demo_tree(root, clips):
+    """The demo layout (<seq>/frames/*.jpg, <seq>/trimap/<first>.png) from
+    VM108 clips: the frames as JPEG, the first frame's GT trimap (radius
+    12) as a gray PNG of labels x 127."""
+    import cv2
+
+    from otvm_tpu_torch.data.trimap import trimap_from_alpha
+
+    for vid in clips:
+        fdir = os.path.join(root, vid["seq_name"], "frames")
+        tdir = os.path.join(root, vid["seq_name"], "trimap")
+        os.makedirs(fdir)
+        os.makedirs(tdir)
+        for name, f in zip(vid["filenames"], vid["frames"]):
+            bgr = np.rint(f[..., ::-1] * 255.0).astype(np.uint8)
+            cv2.imwrite(os.path.join(fdir, os.path.splitext(name)[0] + ".jpg"), bgr)
+        label = trimap_from_alpha(vid["gt_alpha"][0], 12).argmax(-1).astype(np.uint8) * 127
+        cv2.imwrite(os.path.join(tdir, os.path.splitext(vid["filenames"][0])[0] + ".png"), label)
+
+
+LOADER_REPEATS = 12      # 8 DIM foregrounds x 12 / B 4: 24 batches a pass
+
+
+def loader_rates(root, threads=(8, 2, 2, 8)):
+    """The training Loader's rate over DIMTrain at the recipe's crop, batch
+    and clip length, at each thread count in turn (in ABBA order, against
+    the host's drift): batches/s in steady state, from the arrival of batch
+    `n` (n threads, every one of them busy since the start) to the last
+    one's, so the pipeline's fill is left out.  Returns [(threads,
+    batches/s, batches timed, seconds of the pass)]."""
+    from otvm_tpu_torch.data.datasets import DIMTrain
+    from otvm_tpu_torch.data.loader import Loader, epoch_indices
+
+    ds = DIMTrain.from_adobe_layout(root, image_shape=(TRAIN_HW, TRAIN_HW), sample_length=TRAIN_S)
+    idx = epoch_indices(len(ds), 0, repeats=LOADER_REPEATS)
+    rates = []
+    for n in threads:
+        t0 = time.perf_counter()
+        arrivals = [time.perf_counter() for _ in Loader(ds, idx, TRAIN_B, seed=1, num_threads=n)]
+        assert len(arrivals) == len(idx) // TRAIN_B > 2 * max(threads)
+        timed = len(arrivals) - n
+        rates.append((n, timed / (arrivals[-1] - arrivals[n - 1]), timed, arrivals[-1] - t0))
+    return rates
+
+
+def entry_points_phase(torch, ma, card):
+    """Phase 8: the command-line entry points (otvm_tpu_torch/cli/), chained
+    at full width in this process through each one's main(argv), in a
+    temporary working directory: trimap-s1 -> stage 2 -> stage 4 -> resume
+    on scripts/make_synth_data.py's data, then the eval CLI on the
+    checkpoints, every read counted (and those of the training runs and the
+    first eval run checked against the plain read in lockstep)."""
+    import shutil
+    import tempfile
+
+    from otvm_tpu_torch.cli import eval as cli_eval
+    from otvm_tpu_torch.cli import train as cli_train
+    from otvm_tpu_torch.cli import train_s1_trimap as cli_s1
+    from otvm_tpu_torch.eval.runner import iter_vm108_videos
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out, times = {}, {}
+    t8 = time.perf_counter()
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        os.chdir(tmp)
+        t = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(repo, "scripts", "make_synth_data.py"),
+                        "data"] + SYNTH_ARGS, check=True, capture_output=True, text=True,
+                       timeout=300)
+        clips = list(iter_vm108_videos("data", "val"))
+        assert [len(v["frames"]) for v in clips] == [SYNTH_FRAMES] * 2
+        assert clips[0]["frames"][0].shape[:2] == SYNTH_HW
+        write_demo_tree("demo", clips)
+        times["fixture"] = time.perf_counter() - t
+        print(f"  fixture: make_synth_data.py {' '.join(SYNTH_ARGS)} and the demo tree, "
+              f"{times['fixture']:.1f} s")
+        hw16 = (SYNTH_HW[0] // 16) * (SYNTH_HW[1] // 16)
+        for dname in ("float32", "bfloat16"):
+            table = ma.max_active_clusters(getattr(torch, dname), 128, 512)
+            q, v, splits, blocks = ma.launch_geometry(1, hw16, MAX_MEM + 1, 512,
+                                                      getattr(torch, dname), table)
+            route = "in a cluster" if blocks > 1 else "through L2" if splits > 1 else "unsplit"
+            out[f"read_512x640_{dname}"] = dict(hw=hw16, splits=splits, blocks=blocks, route=route)
+            print(f"  the read at 512x640 (HW {hw16}, T {MAX_MEM + 1}), {dname}: {q} x {v} "
+                  f"tiles, {splits} splits, merged {route}")
+
+        t = time.perf_counter()
+        rates = loader_rates("data")
+        times["loader"] = time.perf_counter() - t
+        out["loader_batches_per_s"] = [dict(threads=n, rate=r, batches_timed=k, pass_s=p)
+                                       for n, r, k, p in rates]
+        print(f"  Loader over DIMTrain, 320x320, B 4, S 3, {os.cpu_count()} host cores, steady "
+              "state: " + ", ".join(f"{n} threads {r:.3f} batches/s ({k} batches, pass {p:.1f} s)"
+                                    for n, r, k, p in rates))
+
+        common = ["--testmode", "--data-root", "data", "--repeats", "1", "--workers", "2"]
+        chain = [("train_s1_trimap", cli_s1.main, common + ["--max-iters", "2"], 2),
+                 ("train stage 2", cli_train.main,
+                  common + ["--stage", "2", "--init-trimap", "weights/s1_OTVM_trimap"], 2),
+                 ("train stage 4", cli_train.main,
+                  common + ["--stage", "4", "--init", "weights/s2_OTVM_alpha"], 2),
+                 ("train stage 4 --resume", cli_train.main,
+                  common + ["--stage", "4", "--resume", "weights/s4_OTVM"], 0)]
+        for name, main, argv, steps in chain:
+            t = time.perf_counter()
+            reset_counts(torch, ma)
+            with lockstep_check(torch, ma, "float32") as errs, \
+                    lockstep_grad_check(torch, ma, "float32") as gerrs:
+                res = main(argv)
+            launches = ma.launches
+            times[name] = time.perf_counter() - t
+            state = res["state"]
+            print(f"  {name}: {times[name]:.1f} s, step {state.step}, logged losses "
+                  f"{res['losses']}{', IoU ' + str(res['ious']) if 'ious' in res else ''}; "
+                  f"memory_read {launches} launches, merged in a cluster / through L2 "
+                  f"{merges(ma)}, rel err <= {max(errs, default=0):.3e} (backward "
+                  f"{len(gerrs)}, <= {max(gerrs, default=0):.3e})")
+            assert np.isfinite(res["losses"]).all(), f"{name}: non-finite loss"
+            assert len(res["losses"]) == (1 if steps else 0), f"{name}: logged {res['losses']}"
+            assert launches == len(errs) == (TRAIN_S - 1) * steps, \
+                f"{name}: {launches} reads, want {TRAIN_S - 1} a step over {steps} steps"
+            out[name] = dict(seconds=times[name], step=state.step, losses=res["losses"],
+                             launches=launches, merges=merges(ma), read_err=max(errs, default=0))
+        assert state.step == out["train stage 4"]["step"] == 2 and res["start_epoch"] == 1, \
+            "--resume did not restore the stage-4 checkpoint's step"
+        del state, res
+        torch.cuda.empty_cache()
+
+        n_reads = 2 * (SYNTH_FRAMES - 1)       # memorize every 10th frame: frames 1-11 read
+        metric_keys = ("SAD", "MSE", "Grad", "Conn", "SSDA", "dtSSD", "MESSDdt")
+        runs = [("eval", ["--weights", "weights/s4_OTVM", "--outdir", "ev1"], True, n_reads),
+                ("eval --streams 2", ["--weights", "weights/s4_OTVM", "--outdir", "ev2",
+                                      "--streams", "2"], False, n_reads),
+                ("eval --trimap-net", ["--trimap-net", "--weights", "weights/s1_OTVM_trimap",
+                                       "--outdir", "ev3"], False, n_reads),
+                ("eval --stage 2", ["--stage", "2", "--weights", "weights/s2_OTVM_alpha",
+                                    "--outdir", "ev4"], False, 0),
+                ("eval --demo --viz", ["--demo", "--viz", "--weights", "weights/s4_OTVM",
+                                       "--data-root", "demo", "--outdir", "ev5"], False, n_reads)]
+        for name, argv, checked, want in runs:
+            argv = argv if "--data-root" in argv else argv + ["--data-root", "data"]
+            t = time.perf_counter()
+            reset_counts(torch, ma)
+            with (lockstep_check(torch, ma, "float32") if checked
+                  else contextlib.nullcontext([])) as errs:
+                res = cli_eval.main(argv)
+            launches = ma.launches
+            times[name] = time.perf_counter() - t
+            print(f"  {name}: {times[name]:.1f} s, memory_read {launches} launches, merged in a "
+                  f"cluster / through L2 {merges(ma)}" +
+                  (f", every read vs plain: rel err <= {max(errs):.3e}" if checked else "") +
+                  (f"; {json.dumps(res)}" if res else ""))
+            assert launches == want, f"{name}: {launches} reads, want {want}"
+            assert not checked or len(errs) == want
+            out[name] = dict(seconds=times[name], launches=launches, merges=merges(ma),
+                             **(dict(read_err=max(errs)) if checked else {}),
+                             **({"results": res} if res else {}))
+            if res is not None:
+                assert res["videos"] == 2, f"{name}: {res['videos']} videos"
+                keys = ("iou",) if "--trimap-net" in argv else metric_keys
+                assert all(np.isfinite(res[k]) for k in keys), f"{name}: {res}"
+        pngs = lambda d, seq: sorted(os.listdir(os.path.join(d, seq)))
+        seqs = [v["seq_name"] for v in clips]
+        for d in ("ev1/pred", "ev2/pred", "ev3/pred_trimap", "ev4/pred", "ev5/pred"):
+            for seq in seqs:
+                assert len(pngs(d, seq)) == SYNTH_FRAMES, f"{d}/{seq}: {len(pngs(d, seq))} PNGs"
+        for seq in seqs:
+            assert len([n for n in pngs("ev5/viz", seq) if n.endswith(".jpg")]) == SYNTH_FRAMES
+            for n in pngs("ev1/pred", seq):
+                with open(os.path.join("ev1/pred", seq, n), "rb") as a, \
+                        open(os.path.join("ev2/pred", seq, n), "rb") as b:
+                    assert a.read() == b.read(), f"--streams 2 wrote other bytes: {seq}/{n}"
+        assert 0.0 <= out["eval --trimap-net"]["results"]["iou"] <= 1.0
+        print(f"  --streams 2 PNGs byte-identical to --streams 1 ({2 * SYNTH_FRAMES}); "
+              f"{SYNTH_FRAMES} PNGs a clip in every run, the demo's viz strips written")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = dict(times, total=time.perf_counter() - t8)
+    print(f"  phase 8 took {out['seconds']['total']:.1f} s on {card}")
+    return out
+
+
 def make_video(n, seed=0):
     """Smooth seeded frames (a coarse random grid, bilinearly upsampled,
     new per frame) and the bench's nested-box first trimap."""
@@ -837,6 +1041,13 @@ def main() -> int:
     serving = serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, (ka, kt))
     print(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
+    print("phase 8: the entry points, chained on the card")
+    entry = entry_points_phase(torch, ma, card)
+    print(f"  the eval CLI, fp32 with every read checked: "
+          f"{entry['eval']['results']['fps']:.3f} frames/s at 512x640 (phase 4's stream at "
+          f"512x512: {kfps:.3f}); --streams 2 {entry['eval --streams 2']['results']['fps']:.3f} "
+          f"aggregate, unchecked")
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the bf16 stream's launches; every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -867,6 +1078,7 @@ def main() -> int:
                             f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_launches"],
                             f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
          "serving_paths": serving,
+         "entry_points": entry,
          "l2_merge_beside_held_sms": held,
          "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)

@@ -19,14 +19,12 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    another one.  With no CUDA device and no explicit request this raises:
-    the port never falls back to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    another one.  Without a CUDA device, CUDA (asked for or by default)
+    raises: the port never falls back to the CPU on its own."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+    return device
 
 
 def set_fp32_numerics() -> None:

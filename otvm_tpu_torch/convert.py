@@ -317,16 +317,23 @@ _JOINT_SKIP = ("IMG_MEAN", "IMG_STD", "LAPLOSS.KERNEL", "LOSS_TRIMAP.weight",
 
 
 def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """A released joint OTVM checkpoint (s3_OTVM.pth / s4_OTVM.pth: 'NET.*'
-    alpha + 'trimap.model.*' STM) -> the port's (STM, FBA) state_dicts.
-    The GN-WS FBA trunk only: the reference ships no resnet50_BN checkpoint,
-    and one (its 3-conv stem) is refused, as the JAX converter refuses it."""
+    """A released OTVM checkpoint -> the port's (STM, FBA) state_dicts: a
+    joint one (s3_OTVM.pth / s4_OTVM.pth: 'NET.*' alpha + 'trimap.model.*'
+    STM), or one network alone, as the JAX package's
+    import_torch_checkpoint reads them (STM_weights.pth and the stage-1
+    trimap files: 'Encoder_M.*' present; else an alpha network), the
+    other dict then empty.  The GN-WS FBA trunk only: the reference ships
+    no resnet50_BN checkpoint, and one (its 3-conv stem) is refused, as the
+    JAX converter refuses it."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd and not isinstance(sd["state_dict"], torch.Tensor):
         sd = sd["state_dict"]
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    if not any(k.startswith(("NET.", "trimap.model.")) for k in sd):
+        net = "trimap.model." if any(k.startswith("Encoder_M.") for k in sd) else "NET."
+        sd = {net + k: v for k, v in sd.items()}
     stm_sd, fba_sd = {}, {}
     for k, v in sd.items():
-        k = k[len("module."):] if k.startswith("module.") else k
         if k in _JOINT_SKIP:
             continue
         if k.startswith("trimap.model."):

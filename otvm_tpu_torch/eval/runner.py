@@ -6,10 +6,18 @@
   * `MultiStreamEvaluator.run_videos`: several clips at once, round-robin,
     one bank each.
   * `TrimapEvaluator.run_video`: the stage-1 STM alone (`trimap_eval_step`).
+  * `evaluate_vm108` / `evaluate_vm108_trimap`: the VideoMatting108
+    protocol over a dataset tree (`iter_vm108_videos`), scored by
+    eval/metrics.py; `iter_demo_videos` reads the demo layout.
 
 Protocol (eval.py:117-242): memorize every `memory_skip_frame`-th frame, a
 bank of at most `memory_max_num` slots, both adjusted for inputs above
-1100 px; frames padded to /32 with the trimap bg-padded.
+1100 px; frames padded to /32 with the trimap bg-padded; GT trimaps
+dilated by the protocol's `trimap_width` (narrow / medium / wide: radius
+5 / 12 / 20).  Alpha PNGs (and `write_viz`'s strips) are written after a
+clip's timed loop, so `fps` leaves them out.  The PNGs truncate
+(`(clip(a, 0, 1) * 255).astype(uint8)`), where `wire_u8_out` rounds, as
+in the JAX package (ROADMAP.md §3).
 
 Pipelining: a step's outputs start a non-blocking copy into pinned host
 memory as soon as they are enqueued, and are read after the next step is
@@ -18,26 +26,33 @@ enqueued, after their CUDA event.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
+import subprocess
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device, set_fp32_numerics
+from ..config import TRIMAP_WIDTH_KERNELS
+from ..data.trimap import trimap_from_alpha, trimap_from_png
 from ..models.otvm import (alpha_predict, eval_chunk_step, eval_frame_step, make_eval_bank,
                            make_models, trimap_eval_step)
 from ..models.stm import STM
 from ..nn.layers import freeze_for_inference
 from ..nn.ops import divide_pad_amounts
+from .metrics import trimap_iou, video_metrics
 
 
 @dataclasses.dataclass
 class EvalProtocol:
     memory_max_num: int = 5
     memory_skip_frame: int = 10
-    trimap_width: str = "medium"     # GT trimap dilation, config.TRIMAP_WIDTH_KERNELS:
-                                     # "medium" only (see __post_init__)
+    trimap_width: str = "medium"     # GT trimap dilation of evaluate_vm108*, a key of
+                                     # config.TRIMAP_WIDTH_KERNELS
     stage: int = 4                   # 3-4: joint; 1-2: FBA on given trimaps
     arch: str = "resnet50_GN_WS"     # FBA trunk of the checkpoint (models/fba.py)
     large_input_edge: int = 1100     # eval.py:184
@@ -52,11 +67,9 @@ class EvalProtocol:
     pad_multiple: int = 32           # models/alpha/model.py:408-410
 
     def __post_init__(self):
-        # The width dilates the GT trimaps of the dataset evaluation, which
-        # the port does not have yet: another width would pass unapplied.
-        if self.trimap_width != "medium":
-            raise ValueError(f"trimap_width {self.trimap_width!r}: only 'medium' until the "
-                             "dataset evaluation that applies it is ported")
+        if self.trimap_width not in TRIMAP_WIDTH_KERNELS:
+            raise ValueError(f"trimap_width {self.trimap_width!r}: not one of "
+                             f"{sorted(TRIMAP_WIDTH_KERNELS)}")
 
     def flags(self, n_frames: int, height: int, width: int):
         """Per-frame (first, memorize, last) + effective bank size."""
@@ -152,6 +165,26 @@ def _frame_outputs(a: np.ndarray, t: np.ndarray, pad):
     return _unpad(a, pad), _unpad(t, pad)
 
 
+def _png_name(i: int, filenames: Optional[Sequence[str]]) -> str:
+    return os.path.splitext(filenames[i])[0] + ".png" if filenames else f"{i:05d}.png"
+
+
+def _write_clip(frames01, trimaps, alphas, out_dir: Optional[str],
+                filenames: Optional[Sequence[str]], viz_dir: Optional[str]) -> None:
+    """A clip's alphas [H, W] as 8-bit PNGs in out_dir, named after
+    `filenames` (else 00000.png, ...), truncated as the JAX package's
+    writers do (runner.py:200-209); `write_viz`'s strips in viz_dir."""
+    if out_dir is not None:
+        import cv2
+
+        os.makedirs(out_dir, exist_ok=True)
+        for i, a in enumerate(alphas):
+            cv2.imwrite(os.path.join(out_dir, _png_name(i, filenames)),
+                        (np.clip(a, 0, 1) * 255).astype(np.uint8))
+    if viz_dir is not None:
+        write_viz(viz_dir, frames01, trimaps, alphas)
+
+
 class StreamingEvaluator(_Device):
     """Holds the networks on one device; call `run_video` per clip.
 
@@ -184,10 +217,14 @@ class StreamingEvaluator(_Device):
             self.stm = serve(stm)
 
     def run_video(self, frames01: Sequence[np.ndarray], first_trimap3: np.ndarray,
+                  out_dir: Optional[str] = None, filenames: Optional[Sequence[str]] = None,
+                  viz_dir: Optional[str] = None,
                   gt_trimaps: Optional[Sequence[np.ndarray]] = None
                   ) -> Tuple[List[np.ndarray], List[np.ndarray], float]:
         """frames01: RGB [H, W, 3] float in [0, 1]; first_trimap3 [H, W, 3]
         one-hot.  Returns (alphas [H, W], trimaps [H, W, 3], fps), fp32.
+        out_dir: the alphas as PNGs there, named after `filenames`;
+        viz_dir: `write_viz`'s strips there.
 
         Stage <= 2 runs FBA alone on given trimaps (`alpha_predict`): one
         per frame from `gt_trimaps` (the reference's stage-1/2 eval feeds
@@ -196,7 +233,9 @@ class StreamingEvaluator(_Device):
         ones.  chunk > 1 runs `chunk` frames a call."""
         p = self.protocol
         if p.stage <= 2:
-            return self._run_given_trimaps(frames01, first_trimap3, gt_trimaps)
+            alphas, trimaps, fps = self._run_given_trimaps(frames01, first_trimap3, gt_trimaps)
+            _write_clip(frames01[:len(alphas)], trimaps, alphas, out_dir, filenames, viz_dir)
+            return alphas, trimaps, fps
         n = len(frames01)
         h, w = frames01[0].shape[:2]
         flags, max_num, _ = p.flags(n, h, w)
@@ -225,6 +264,7 @@ class StreamingEvaluator(_Device):
                 pending = self._prefetch((out.alpha, out.trimap))
             self._collect(pending, pad, alphas, trimaps)
         fps = n / (time.perf_counter() - t_start)
+        _write_clip(frames01, trimaps, alphas, out_dir, filenames, viz_dir)
         return alphas, trimaps, fps
 
     def _collect(self, pending, pad, alphas, trimaps):
@@ -305,11 +345,15 @@ class MultiStreamEvaluator(StreamingEvaluator):
     than 4 resolutions captures its graphs again and again; and the memory
     read's L2 workspace is one per CUDA stream (`kernels/memory_attn.py`)."""
 
-    def run_videos(self, videos: Sequence[Dict]):
+    def run_videos(self, videos: Sequence[Dict], out_root: Optional[str] = None,
+                   viz_root: Optional[str] = None):
         """videos: dicts with `frames` (list of [H, W, 3] float RGB in
-        [0, 1]) and `first_trimap` ([H, W, 3] one-hot).  Returns (results,
-        aggregate_fps): results[i] = (alphas, trimaps) of stream i, fp32;
-        aggregate_fps counts all frames over the wall clock of the run."""
+        [0, 1]) and `first_trimap` ([H, W, 3] one-hot), optionally
+        `seq_name` and `filenames`.  Returns (results, aggregate_fps):
+        results[i] = (alphas, trimaps) of stream i, fp32; aggregate_fps
+        counts all frames over the wall clock of the run.  out_root /
+        viz_root: each stream's alpha PNGs / viz strips in
+        <root>/<seq_name> (else stream<i>), written after the run."""
         p = self.protocol
         if p.stage <= 2:
             raise ValueError("multi-stream serving is the joint path (stage 3-4)")
@@ -348,6 +392,12 @@ class MultiStreamEvaluator(StreamingEvaluator):
             if s["pending"] is not None:
                 self._collect(s["pending"], s["pad"], s["alphas"], s["trimaps"])
         agg_fps = total_frames / (time.perf_counter() - t_start)
+        for k, (v, s) in enumerate(zip(videos, sessions)):
+            sub = v.get("seq_name") or f"stream{k}"
+            _write_clip(s["frames"], s["trimaps"], s["alphas"],
+                        os.path.join(out_root, sub) if out_root is not None else None,
+                        v.get("filenames"),
+                        os.path.join(viz_root, sub) if viz_root is not None else None)
         return [(s["alphas"], s["trimaps"]) for s in sessions], agg_fps
 
 
@@ -369,10 +419,12 @@ class TrimapEvaluator(_Device):
         stm.load_state_dict(stm_state, strict=True)
         self.stm = freeze_for_inference(stm.to(self.device).eval().requires_grad_(False))
 
-    def run_video(self, frames01: Sequence[np.ndarray], first_trimap3: np.ndarray
+    def run_video(self, frames01: Sequence[np.ndarray], first_trimap3: np.ndarray,
+                  out_dir: Optional[str] = None, filenames: Optional[Sequence[str]] = None
                   ) -> Tuple[List[np.ndarray], float]:
         """frames01: RGB [H, W, 3] float in [0, 1]; first_trimap3 [H, W, 3]
-        one-hot.  Returns (trimaps [H, W, 3] fp32, fps)."""
+        one-hot.  Returns (trimaps [H, W, 3] fp32, fps).  out_dir: each
+        trimap's argmax label x 127 as a gray PNG there, after the run."""
         p = self.protocol
         n = len(frames01)
         h, w = frames01[0].shape[:2]
@@ -395,7 +447,36 @@ class TrimapEvaluator(_Device):
             pending = self._prefetch((pred,))
         trimaps.append(_unpad(self._fetch(pending)[0][0], pad))
         fps = n / (time.perf_counter() - t_start)
+        if out_dir is not None:
+            import cv2
+
+            os.makedirs(out_dir, exist_ok=True)
+            for i, t in enumerate(trimaps):
+                cv2.imwrite(os.path.join(out_dir, _png_name(i, filenames)),
+                            np.argmax(t, axis=-1).astype(np.uint8) * 127)
         return trimaps, fps
+
+
+def write_viz(viz_dir: str, frames01, trimaps, alphas, fps: int = 10) -> None:
+    """A strip per frame, [image | trimap | alpha | composite over green],
+    as f00000.jpg, ... (eval.py:96-115, 201-242), and viz.mp4 from them
+    where ffmpeg is on the PATH."""
+    import cv2
+
+    os.makedirs(viz_dir, exist_ok=True)
+    for i, (f, t, a) in enumerate(zip(frames01, trimaps, alphas)):
+        a3 = np.repeat(a[..., None], 3, axis=-1)
+        green = np.zeros_like(f)
+        green[..., 1] = 1.0
+        comp = f * a3 + green * (1 - a3)
+        strip = np.concatenate([f, t, a3, comp], axis=1)
+        cv2.imwrite(os.path.join(viz_dir, f"f{i:05d}.jpg"),
+                    (np.clip(strip[..., ::-1], 0, 1) * 255).astype(np.uint8))
+    if shutil.which("ffmpeg"):
+        subprocess.run(
+            ["ffmpeg", "-framerate", str(fps), "-i", os.path.join(viz_dir, "f%05d.jpg"),
+             os.path.join(viz_dir, "viz.mp4"), "-nostats", "-loglevel", "0", "-y"],
+            check=False)
 
 
 def frame_window_indices(idx: int, num_frames: int, total: int) -> np.ndarray:
@@ -412,3 +493,154 @@ def load_frame_window(frames: Sequence[np.ndarray], idx: int, num_frames: int
     frame's index (the reference names the output after it, dataset.py:956)."""
     wi = frame_window_indices(idx, num_frames, len(frames))
     return np.stack([frames[i] for i in wi]), int(wi[num_frames // 2])
+
+
+def iter_demo_videos(data_root: str) -> Iterator[Dict]:
+    """The demo layout (Demo_Test, dataset.py:1019-1070): <root>/<seq>/
+    frames/*.jpg, and <root>/<seq>/trimap/<first frame>.png for the first
+    frame only.  Yields dicts: seq_name, frames (RGB float in [0, 1]),
+    first_trimap (one-hot), filenames, gt_alpha None."""
+    import cv2
+
+    for seq in sorted(os.listdir(data_root)):
+        fdir = os.path.join(data_root, seq, "frames")
+        tdir = os.path.join(data_root, seq, "trimap")
+        if not os.path.isdir(fdir):
+            continue
+        names = sorted(os.listdir(fdir))
+        frames = []
+        for nm in names:
+            bgr = cv2.imread(os.path.join(fdir, nm), cv2.IMREAD_COLOR)
+            frames.append(bgr[..., ::-1].astype(np.float32) / 255.0)
+        tri_name = os.path.splitext(names[0])[0] + ".png"
+        tri = trimap_from_png(cv2.imread(os.path.join(tdir, tri_name), cv2.IMREAD_UNCHANGED))
+        yield dict(seq_name=seq, frames=frames, first_trimap=tri, filenames=names, gt_alpha=None)
+
+
+def iter_vm108_videos(data_root: str, mode: str = "val", dilate_radius: int = 12
+                      ) -> Iterator[Dict]:
+    """The VideoMatting108 layout (VideoMatting108_Test, dataset.py:959-1017):
+    <root>/VideoMatting108/FG_done/<seq>/*.png RGBA (alpha in the 4th
+    channel), the background of each frame in BG_done2 through
+    frame_corr.json (a missing one read as .png), the clips listed in
+    {mode}_videos.txt.  Frames are composited fg * a + bg * (1 - a); the
+    first trimap is the GT alpha's, dilated by `dilate_radius`.  Yields
+    iter_demo_videos' keys with gt_alpha (list of [H, W]) and dilate_radius."""
+    import cv2
+
+    root = os.path.join(data_root, "VideoMatting108")
+    with open(os.path.join(root, "frame_corr.json")) as f:
+        frame_corr = json.load(f)
+    with open(os.path.join(root, f"{mode}_videos.txt")) as f:
+        seqs = [v.strip() for v in f if v.strip()]
+
+    for seq in seqs:
+        fns = [k for k in sorted(frame_corr.keys()) if os.path.dirname(k) == seq]
+        frames, gt_alphas = [], []
+        for fn in fns:
+            raw = cv2.imread(os.path.join(root, "FG_done", fn), cv2.IMREAD_UNCHANGED)
+            fg = raw[..., :3].astype(np.float32)
+            a = raw[..., 3:4].astype(np.float32) / 255.0
+            bgp = os.path.join(root, "BG_done2", frame_corr[fn])
+            if not os.path.exists(bgp):
+                bgp = os.path.splitext(bgp)[0] + ".png"
+            bg = cv2.imread(bgp, cv2.IMREAD_COLOR).astype(np.float32)
+            comp = (fg * a + bg * (1 - a))[..., ::-1] / 255.0      # BGR -> RGB in [0, 1]
+            frames.append(comp.astype(np.float32))
+            gt_alphas.append(a[..., 0])
+        tri = trimap_from_alpha(gt_alphas[0], dilate_radius)
+        yield dict(seq_name=seq, frames=frames, first_trimap=tri,
+                   filenames=[os.path.basename(f) for f in fns],
+                   gt_alpha=gt_alphas, dilate_radius=dilate_radius)
+
+
+def _score_vm108_video(vid: Dict, alphas, radius: int, totals: Dict[str, float]) -> None:
+    """Adds one clip's 7 metrics to `totals`, scored on the unknown region
+    of each frame's GT trimap at `radius` (utils/tmp/metric.py:114-119)."""
+    pred = np.stack(alphas) * 255.0
+    gt = np.stack(vid["gt_alpha"]) * 255.0
+    mask = np.stack([trimap_from_alpha(a, radius)[..., 1] for a in vid["gt_alpha"]]) * 128.0
+    for k, v in video_metrics(pred, gt, mask).items():
+        totals[k] = totals.get(k, 0.0) + v
+
+
+def evaluate_vm108(evaluator: StreamingEvaluator, data_root: str,
+                   out_dir: Optional[str] = None, mode: str = "val",
+                   max_videos: Optional[int] = None, streams: int = 1) -> Dict[str, float]:
+    """The VM108 protocol: every clip of {mode}_videos.txt (at most
+    `max_videos`) through the evaluator, scored against its GT alphas on
+    the unknown region of the GT trimaps dilated by the protocol's
+    trimap_width.  Returns each metric's mean over clips, `fps` (the mean
+    of the clips'; with streams > 1 of the groups' aggregate rates) and
+    `videos`.  Stage <= 2 feeds every frame's GT trimap (the given-trimap
+    protocol).  streams > 1 serves the clips in groups of `streams`
+    through a MultiStreamEvaluator (each clip's outputs are those of
+    run_video).  out_dir: the alpha PNGs in out_dir/<seq>."""
+    radius = TRIMAP_WIDTH_KERNELS[evaluator.protocol.trimap_width]
+    totals: Dict[str, float] = {}
+    count = 0
+    fps_all = []
+    if streams > 1:
+        if not isinstance(evaluator, MultiStreamEvaluator):
+            raise ValueError("streams > 1 needs a MultiStreamEvaluator")
+        group: list = []
+
+        def flush():
+            results, agg_fps = evaluator.run_videos(group, out_root=out_dir)
+            fps_all.append(agg_fps)
+            for vid, (alphas, _) in zip(group, results):
+                _score_vm108_video(vid, alphas, radius, totals)
+            group.clear()
+
+        for vid in iter_vm108_videos(data_root, mode, radius):
+            group.append(vid)
+            count += 1
+            if len(group) == streams:
+                flush()
+            if max_videos and count >= max_videos:
+                break
+        if group:
+            flush()
+    else:
+        for vid in iter_vm108_videos(data_root, mode, radius):
+            gt_tris = None
+            if evaluator.protocol.stage <= 2:
+                gt_tris = [trimap_from_alpha(a, radius) for a in vid["gt_alpha"]]
+            alphas, _, fps = evaluator.run_video(
+                vid["frames"], vid["first_trimap"],
+                out_dir=os.path.join(out_dir, vid["seq_name"]) if out_dir else None,
+                filenames=vid["filenames"], gt_trimaps=gt_tris)
+            fps_all.append(fps)
+            _score_vm108_video(vid, alphas, radius, totals)
+            count += 1
+            if max_videos and count >= max_videos:
+                break
+    out = {k: v / max(count, 1) for k, v in totals.items()}
+    out["fps"] = float(np.mean(fps_all)) if fps_all else 0.0
+    out["videos"] = count
+    return out
+
+
+def evaluate_vm108_trimap(evaluator: TrimapEvaluator, data_root: str,
+                          out_dir: Optional[str] = None, mode: str = "val",
+                          max_videos: Optional[int] = None) -> Dict[str, float]:
+    """Trimap propagation on VM108: the mean over clips of the mean
+    trimap_iou of each frame's predicted trimap against the GT trimap at
+    the protocol's width (train_s1_trimap.py:287-303's metric), with `fps`
+    and `videos`.  out_dir: the label PNGs in out_dir/<seq>."""
+    radius = TRIMAP_WIDTH_KERNELS[evaluator.protocol.trimap_width]
+    ious, fps_all = [], []
+    count = 0
+    for vid in iter_vm108_videos(data_root, mode, radius):
+        trimaps, fps = evaluator.run_video(
+            vid["frames"], vid["first_trimap"],
+            out_dir=os.path.join(out_dir, vid["seq_name"]) if out_dir else None,
+            filenames=vid["filenames"])
+        fps_all.append(fps)
+        gts = [trimap_from_alpha(a, radius) for a in vid["gt_alpha"]]
+        ious.append(float(np.mean([trimap_iou(p, g) for p, g in zip(trimaps, gts)])))
+        count += 1
+        if max_videos and count >= max_videos:
+            break
+    return dict(iou=float(np.mean(ious)) if ious else 0.0,
+                fps=float(np.mean(fps_all)) if fps_all else 0.0, videos=count)

@@ -11,7 +11,8 @@ or bf16 compute with fp32 masters:
   * a torch.profiler trace of one step: device time by kernel, device ops
     a step, the device's busy share of the step's wall clock, and the
     memory read's share: its kernels (memory_read_*) and its backward
-    (the autograd node MemoryReadBackward, with every kernel it launched).
+    (the autograd node MemoryReadBackward, with every kernel it launched);
+    its Chrome trace goes to <out without .json>_trace/trace.json.
 `chip_smoke.py` phase 6 makes its batches and times and profiles its steps
 with the same functions.  Needs a CUDA card; it does not run on the CPU.
 """
@@ -29,6 +30,7 @@ import torch
 from ..config import Config, get_cfg_defaults
 from ..data.loader import encode_wire
 from ..train.trainer import init_train_state, make_train_step
+from ..utils.logging import profile_trace
 from .profile_stream import device_kernels
 
 WARMUP, TIMED = 2, 4
@@ -71,12 +73,12 @@ def timed_step(step, state, batch):
     return state, metrics, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
 
 
-def profile_step(step, state, batch):
-    """One train step under torch.profiler -> (state, trace summary)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_step(step, state, batch, trace_dir: str):
+    """One train step under torch.profiler (utils/logging.py profile_trace,
+    its Chrome trace written to <trace_dir>/trace.json) -> (state, trace
+    summary)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile_trace(trace_dir, enabled=True) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -120,7 +122,8 @@ def main():
         state, _, ms, _ = timed_step(step, state, batch)
         times.append(ms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    state, trace = profile_step(step, state, batches[-1])
+    trace_dir = os.path.splitext(args.out)[0] + "_trace"
+    state, trace = profile_step(step, state, batches[-1], trace_dir)
     (h, w), b, s = cfg.train.train_input_size, cfg.train.batch_size, cfg.train.frame_num
     result = {"card": card, "dtype": args.dtype, "size": [h, w], "batch": b, "frames": s,
               "step_ms": float(np.median(times)), "step_ms_each": times, "peak_gb": peak_gb,

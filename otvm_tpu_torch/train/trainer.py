@@ -113,6 +113,20 @@ def make_train_step(cfg: Config) -> Callable:
     return train_step
 
 
+def make_viz_forward(cfg: Config) -> Callable:
+    """viz_forward(state, batch) -> {'alphas', 'comps'}: the stage's joint
+    forward without gradients, fp32, for the training image grids
+    (train.py:255-275, utils/viz.py:save_train_grid); numpy [B, S, H, W, 1|3]."""
+    stage = cfg.train.stage
+
+    @torch.no_grad()
+    def viz_forward(state: TrainState, batch: Mapping):
+        _, aux = joint_train_forward(state.stm, state.fba, _on_device(batch, state.device), stage)
+        return {k: aux[k].float().cpu().numpy() for k in ("alphas", "comps")}
+
+    return viz_forward
+
+
 def make_trimap_s1_train_step(cfg: Config) -> Callable:
     """train_s1_trimap.py's step: the STM alone, trained on the CE of its
     propagated trimaps.  Without `img` in the batch, the frames are

@@ -53,13 +53,13 @@ def restore_train_state(path: str, template):
     return template
 
 
-def restore_params_only(path: str, template):
-    """The networks' weights from a save_train_state file into `template`,
+def restore_params_only(path: str, template, nets=("stm", "fba")):
+    """The weights of `nets` from a save_train_state file into `template`,
     its optimizer untouched; keys the file lacks keep the template's
     values (reported), keys the template lacks are ignored."""
     ckpt = _load(path)
     missing = []
-    for name in ("stm", "fba"):
+    for name in nets:
         result = getattr(template, name).load_state_dict(ckpt.get(name, {}), strict=False)
         missing += [f"{name}.{k}" for k in result.missing_keys]
     if missing:

@@ -1,9 +1,12 @@
-"""Run logging and meters, counterpart of otvm_tpu/utils/logging.py
-(helpers.py:125-162 of the reference, and a step timer)."""
+"""Run logging, meters and a profiler hook, counterpart of
+otvm_tpu/utils/logging.py (helpers.py:125-162 of the reference, a step
+timer, and `profile_trace`, which the reference lacks)."""
 from __future__ import annotations
 
 import logging
+import os
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 
@@ -42,6 +45,27 @@ def create_logger(output_dir: str, cfg_name: str, phase: str = "train"):
     logger.addHandler(fh)
     logger.addHandler(logging.StreamHandler())
     return logger, str(out)
+
+
+@contextmanager
+def profile_trace(log_dir: str, enabled: bool = False):
+    """torch.profiler around a block, host and (where the block runs on
+    CUDA) device activity, written as a Chrome trace to
+    <log_dir>/trace.json (chrome://tracing, Perfetto); yields the profiler
+    (for its key_averages()).  Nothing happens, and None is yielded, unless
+    `enabled`."""
+    if not enabled:
+        yield None
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StepTimer:

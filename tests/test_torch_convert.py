@@ -102,6 +102,10 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "otvm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT / "otvm_tpu_torch")) for f in files[:-1]}
+    assert {"cli/eval.py", "cli/train.py", "cli/train_s1_trimap.py", "data/augs.py",
+            "data/datasets.py", "data/trimap.py", "data/loader.py", "eval/metrics.py",
+            "utils/viz.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -12,7 +12,8 @@ trimap-only steps build the full-width models only):
   * `trimap_eval_step` with `memorize_gt` both ways and `TrimapEvaluator`
     against JAX's: counts and eviction equal, trimaps within 1e-3 on
     frame 0 and to the stream tolerances after;
-  * stage routing, the protocol's `trimap_width` check, outputs copied
+  * stage routing, the protocol's `trimap_width` reaching the scored
+    mask (and an unknown width refused), outputs copied
     out of the host buffers, and `frame_window_indices` /
     `load_frame_window`.
 
@@ -197,10 +198,46 @@ def test_stage_1_2_runs_without_a_trimap_state():
         assert len(alphas) == 3
 
 
-def test_protocol_rejects_an_unapplied_trimap_width():
-    """No evaluator of the port dilates GT trimaps yet: only the default."""
+def test_protocol_rejects_an_unapplied_trimap_width(tmp_path, monkeypatch):
+    """evaluate_vm108 scores each clip on the unknown region of its GT
+    trimaps dilated by the protocol's width, radius 5 / 12 / 20
+    (config.TRIMAP_WIDTH_KERNELS); a width without a radius raises."""
+    import json
+
+    import cv2
+
+    from otvm_tpu_torch.data.trimap import trimap_from_alpha
+    from otvm_tpu_torch.eval import runner
+
+    base = tmp_path / "VideoMatting108"
+    yy, xx = np.mgrid[:48, :48]
+    gt = [np.clip((12 - np.hypot(yy - 24, xx - 20 - 2 * i)) / 3, 0, 1) for i in range(2)]
+    for d in ("FG_done", "BG_done2"):
+        (base / d / "c").mkdir(parents=True)
+    for i, a in enumerate(gt):
+        cv2.imwrite(str(base / "FG_done" / "c" / f"{i}.png"),
+                    np.dstack([np.full((48, 48, 3), 200, np.uint8), (a * 255).astype(np.uint8)]))
+        cv2.imwrite(str(base / "BG_done2" / "c" / f"{i}.png"), np.zeros((48, 48, 3), np.uint8))
+    (base / "frame_corr.json").write_text(json.dumps({f"c/{i}.png": f"c/{i}.png" for i in range(2)}))
+    (base / "val_videos.txt").write_text("c")
+    masks = []
+    monkeypatch.setattr(runner, "video_metrics", lambda p, t, m: masks.append(m) or {"SAD": 0.0})
+
+    class Given:                      # the GT alphas back, as an evaluator would return them
+        def __init__(self, width):
+            self.protocol = EvalProtocol(trimap_width=width)
+
+        def run_video(self, frames, tri, out_dir=None, filenames=None, gt_trimaps=None):
+            return [f.mean(-1) for f in frames], None, 1.0
+
+    for width, radius in (("narrow", 5), ("medium", 12), ("wide", 20)):
+        assert runner.evaluate_vm108(Given(width), str(tmp_path))["videos"] == 1
+        alphas = [(a * 255).astype(np.uint8) / 255.0 for a in gt]
+        want = np.stack([trimap_from_alpha(a, radius)[..., 1] for a in alphas]) * 128.0
+        np.testing.assert_array_equal(masks[-1], want)
+    assert masks[0].sum() < masks[1].sum() < masks[2].sum()
     assert EvalProtocol().trimap_width == "medium"
-    for width in ("narrow", "wide", "thin"):
+    for width in ("thin", "Medium", ""):
         with pytest.raises(ValueError, match="trimap_width"):
             EvalProtocol(trimap_width=width)
 
