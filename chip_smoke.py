@@ -76,7 +76,19 @@ Phases, in order; any failure exits non-zero:
      eval CLI on those checkpoints over both val clips: stage 4 (22 reads
      in lockstep, 7 finite metrics), --streams 2 (the same PNG bytes),
      --trimap-net (22 reads, a finite IoU), --stage 2 on given trimaps (0
-     reads), --demo --viz (strips written); 12 PNGs a clip each.
+     reads), --demo --viz (strips written); 12 PNGs a clip each;
+  9. data parallelism on the card: two ranks share it over gloo with CUDA
+     tensors, asked for by name (NCCL takes one card a rank), through
+     otvm_tpu_torch/tools/ddp_check.py: fp32 stage-4 training at the
+     recipe's crop and global batch (320x320, 4: 2 a rank, S 3), 6 steps
+     with every read (forward and backward) in lockstep in both ranks and
+     the ranks' parameters and moments bit-equal after every step, 3 timed
+     steps, a remat step (its re-run reads in lockstep too) and a bf16 step,
+     and a trimap-s1 step; rank 0 then takes the same steps alone on the
+     global batches, and the losses (rtol 1e-5), RAdam's moments and the
+     parameters' change (norm-relative 1e-4) must agree; the 2-rank step's
+     ms beside the 1-process one's and the gloo all-reduce's; then
+     entry.py's dryrun_multichip(2) and dryrun_multichip_eval(2) over gloo.
 The line before the last is a JSON object with the kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -314,57 +326,6 @@ def kernel_phase(torch, ma):
     return timing, held
 
 
-@contextlib.contextmanager
-def lockstep_check(torch, ma, dname):
-    """While active, every kernel launch on the path is also computed by
-    the plain version on the same inputs and held to READ_TOL; yields the
-    list of norm-relative errors per read.  The plain calls launch no
-    kernel."""
-    from otvm_tpu_torch.tools.kernel_check import READ_TOL, rel_err
-
-    launch, errs = ma.memory_read_cuda, []
-    tol = READ_TOL[getattr(torch, dname)]
-
-    def checked(q, k, v, mask):
-        out = launch(q, k, v, mask)
-        want = ma.memory_read_plain(q, k, v, mask)
-        errs.append(rel_err(out, want))
-        assert errs[-1] <= tol, f"kernel != plain on the stream's read {len(errs) - 1}: " \
-            f"rel err {errs[-1]:.3e} > {tol:g}"
-        return out
-
-    ma.memory_read_cuda = checked
-    try:
-        yield errs
-    finally:
-        ma.memory_read_cuda = launch
-
-
-@contextlib.contextmanager
-def lockstep_grad_check(torch, ma, dname):
-    """While active, every backward of the read (the autograd Function's
-    memory_read_vjp_plain) is also computed by autograd through the plain
-    read on the same inputs and held to GRAD_TOL; yields the list of the
-    largest of the three gradients' norm-relative errors per backward."""
-    from otvm_tpu_torch.tools.kernel_check import GRAD_TOL, plain_read_grads, rel_err
-
-    vjp, errs = ma.memory_read_vjp_plain, []
-    tol = GRAD_TOL[getattr(torch, dname)]
-
-    def checked(q, k, v, mask, g):
-        grads = vjp(q, k, v, mask, g)
-        errs.append(max(rel_err(a, w) for a, w in zip(grads, plain_read_grads(q, k, v, mask, g))))
-        assert errs[-1] <= tol, f"read backward != autograd through the plain read, backward " \
-            f"{len(errs) - 1}: rel err {errs[-1]:.3e} > {tol:g}"
-        return grads
-
-    ma.memory_read_vjp_plain = checked
-    try:
-        yield errs
-    finally:
-        ma.memory_read_vjp_plain = vjp
-
-
 def read_grad_phase(torch, ma, flush):
     """Phase 6, first part: the read's autograd Function at the training
     shapes, against autograd through the plain read; the plain backward's
@@ -428,6 +389,7 @@ def train_phase(torch, ma, card):
     entry points."""
     from otvm_tpu_torch import config
     from otvm_tpu_torch.tools.profile_train import profile_step, seeded_batches, timed_step
+    from otvm_tpu_torch.tools.kernel_check import lockstep_check, lockstep_grad_check
     from otvm_tpu_torch.train import trainer as T
 
     cfg = config.get_cfg_defaults()
@@ -446,8 +408,8 @@ def train_phase(torch, ma, card):
 
     torch.cuda.synchronize()
     ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
-    with lockstep_check(torch, ma, "float32") as fwd_errs, \
-            lockstep_grad_check(torch, ma, "float32") as bwd_errs:
+    with lockstep_check(torch.float32) as fwd_errs, \
+            lockstep_grad_check(torch.float32) as bwd_errs:
         for i in range(TRAIN_STEPS):
             state, metrics = step(state, batches[i])
             loss = metrics["loss"].item()
@@ -494,8 +456,8 @@ def train_phase(torch, ma, card):
     # bf16: the same state; bf16 copies of the weights feed the networks
     cfg.train.bf16 = True
     step16 = T.make_train_step(cfg)
-    with lockstep_check(torch, ma, "bfloat16") as f16, \
-            lockstep_grad_check(torch, ma, "bfloat16") as b16:          # warm-up, checked
+    with lockstep_check(torch.bfloat16) as f16, \
+            lockstep_grad_check(torch.bfloat16) as b16:          # warm-up, checked
         state, metrics = step16(state, batches[0])
     assert np.isfinite(metrics["loss"].item())
     torch.cuda.synchronize()
@@ -556,6 +518,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     from otvm_tpu_torch.eval.runner import (EvalProtocol, MultiStreamEvaluator,
                                             StreamingEvaluator, TrimapEvaluator)
     from otvm_tpu_torch.models.otvm import init_models, make_eval_bank, trimap_eval_step
+    from otvm_tpu_torch.tools.kernel_check import lockstep_check
 
     out = {}
     proto = dict(memory_max_num=MAX_MEM, memory_skip_frame=SKIP)
@@ -568,7 +531,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     multi = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", **proto))
     serial_b = multi.run_video(frames_b, tri_b)[:2]
     reset_counts(torch, ma)
-    with lockstep_check(torch, ma, "float32") as errs:
+    with lockstep_check(torch.float32) as errs:
         results, fps32 = multi.run_videos(clips)
     out["multistream_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
                                    frames_per_s_with_lockstep=fps32)
@@ -604,7 +567,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     # chunked, fp32: 8 frames a call over 30, the last chunk short
     chunked = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", chunk=8, **proto))
     reset_counts(torch, ma)
-    with lockstep_check(torch, ma, "float32") as errs:
+    with lockstep_check(torch.float32) as errs:
         ca, ct, cfps = chunked.run_video(frames, tri)
     out["chunked_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
                                frames_per_s_with_lockstep=cfps)
@@ -618,7 +581,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     stm1 = init_models(seed=3, stage=1)[0].state_dict()
     trimap_ev = TrimapEvaluator(stm1, EvalProtocol(**proto))
     reset_counts(torch, ma)
-    with lockstep_check(torch, ma, "float32") as errs:
+    with lockstep_check(torch.float32) as errs:
         tris, tfps = trimap_ev.run_video(frames, tri)
     out["trimap_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
                               frames_per_s_with_lockstep=tfps)
@@ -633,7 +596,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     first_tri = torch.from_numpy(tri[None]).cuda()
     counts, first_key = [], None
     reset_counts(torch, ma)
-    with lockstep_check(torch, ma, "float32") as errs:
+    with lockstep_check(torch.float32) as errs:
         for i in range(8):
             frame = torch.from_numpy(frames[i][None]).cuda()
             bank, _ = trimap_eval_step(trimap_ev.stm, bank, frame, first_tri, i == 0, i % 3 == 0,
@@ -667,7 +630,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     bn = StreamingEvaluator(stm_bn.state_dict(), fba_bn.state_dict(),
                             EvalProtocol(arch="resnet50_BN", **proto))
     reset_counts(torch, ma)
-    with lockstep_check(torch, ma, "float32") as errs:
+    with lockstep_check(torch.float32) as errs:
         ba, bt, _ = bn.run_video(frames[:6], tri)
     out["bn_trunk_stage4_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs))
     check_outputs(ba, bt, 6, "resnet50_BN stream")
@@ -744,6 +707,7 @@ def entry_points_phase(torch, ma, card):
     from otvm_tpu_torch.cli import train as cli_train
     from otvm_tpu_torch.cli import train_s1_trimap as cli_s1
     from otvm_tpu_torch.eval.runner import iter_vm108_videos
+    from otvm_tpu_torch.tools.kernel_check import lockstep_check, lockstep_grad_check
 
     repo = os.path.dirname(os.path.abspath(__file__))
     out, times = {}, {}
@@ -792,8 +756,8 @@ def entry_points_phase(torch, ma, card):
         for name, main, argv, steps in chain:
             t = time.perf_counter()
             reset_counts(torch, ma)
-            with lockstep_check(torch, ma, "float32") as errs, \
-                    lockstep_grad_check(torch, ma, "float32") as gerrs:
+            with lockstep_check(torch.float32) as errs, \
+                    lockstep_grad_check(torch.float32) as gerrs:
                 res = main(argv)
             launches = ma.launches
             times[name] = time.perf_counter() - t
@@ -829,7 +793,7 @@ def entry_points_phase(torch, ma, card):
             argv = argv if "--data-root" in argv else argv + ["--data-root", "data"]
             t = time.perf_counter()
             reset_counts(torch, ma)
-            with (lockstep_check(torch, ma, "float32") if checked
+            with (lockstep_check(torch.float32) if checked
                   else contextlib.nullcontext([])) as errs:
                 res = cli_eval.main(argv)
             launches = ma.launches
@@ -866,6 +830,70 @@ def entry_points_phase(torch, ma, card):
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = dict(times, total=time.perf_counter() - t8)
     print(f"  phase 8 took {out['seconds']['total']:.1f} s on {card}")
+    return out
+
+
+def ddp_phase(torch, ma, card):
+    """Phase 9: data parallelism on the card.  Two ranks share the one card
+    over gloo with CUDA tensors, asked for by name (NCCL takes one card a
+    rank).  tools/ddp_check.py: fp32 stage-4 training at config.py's crop
+    and batch (320x320, global batch 4: 2 a rank, S 3), 6 steps with every
+    read in lockstep in both ranks, 3 timed, one remat step (its re-run
+    reads in lockstep too) and one bf16 step, then a trimap-s1 step; rank 0
+    takes the same steps alone and the two runs are held together
+    (ddp_check.verify).  Then __graft_entry__.py's two dry runs on the port
+    (entry.py) over gloo.  A rank that fails fails the phase."""
+    from otvm_tpu_torch import entry
+    from otvm_tpu_torch.tools import ddp_check
+
+    t9 = time.perf_counter()
+    geometry = {}
+    for dt in (torch.float32, torch.bfloat16):
+        table = ma.max_active_clusters(dt, 128, 512)
+        for b in (2, 1):
+            for t in range(1, TRAIN_S):
+                q, v, splits, blocks = ma.launch_geometry(b, TRAIN_TOKENS, t, 512, dt, table)
+                kind = "none" if splits == 1 else "cluster" if blocks > 1 else "L2"
+                geometry[f"{str(dt)[6:]} B {b} T={t}"] = f"{splits} splits, merged {kind}"
+    print(f"  the read at HW {TRAIN_TOKENS} a rank: " +
+          "; ".join(f"{k}: {v}" for k, v in geometry.items()))
+    results = ddp_check.run(2, backend="gloo")
+    print("\n".join("  " + line for line in ddp_check.summary(results).splitlines()))
+    ddp_check.verify(results)      # reads and lockstep checks a step, and the bounds
+    assert all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in results)
+    cmp = results[0]["compare"]["stage4"]
+    assert cmp["params_moved"], "the stage-4 run's parameters did not move by its last held step"
+    stage4 = [r["lines"]["stage4"] for r in results]
+    alone = results[0]["alone"]["stage4"]["step"]
+    timed = [i for i, s in enumerate(alone) if s["kind"] == "timed"]
+    out = dict(
+        backend="gloo", ranks=2, geometry=geometry,
+        reads_per_rank={f"rank {r['rank']}": {name: [s["reads"] for s in line["step"]]
+                                              for name, line in r["lines"].items()}
+                        for r in results},
+        max_fwd_err=max(s["fwd_err"] for line in stage4 for s in line["step"]
+                        if s["fwd_err"] is not None),
+        max_bwd_err=max(s["bwd_err"] for line in stage4 for s in line["step"]
+                        if s["bwd_err"] is not None),
+        step_ms=float(np.median([stage4[0]["step"][i]["ms"] for i in timed])),
+        step_ms_alone=float(np.median([alone[i]["ms"] for i in timed])),
+        all_reduce_ms=float(np.median(stage4[0]["all_reduce_ms"])),
+        profiled=stage4[0]["profiled"], compare=results[0]["compare"],
+        spread=results[0]["spread"], bounds=ddp_check.bounds(results))
+    print(f"  2 ranks over gloo on one card: {out['step_ms']:.1f} ms a step (median of "
+          f"{len(timed)}), alone {out['step_ms_alone']:.1f} ms; the gradient all-reduce "
+          f"{out['all_reduce_ms']:.1f} ms ({out['all_reduce_ms'] / out['step_ms']:.1%}), on {card}")
+    train = entry.dryrun_multichip(2, backend="gloo")
+    evals = entry.dryrun_multichip_eval(2, backend="gloo")
+    assert all(r["reads"] == 1 for r in train), "dryrun_multichip: a read a rank (S 2)"
+    assert all(r["reads"] == 2 and r["isolated"] for r in evals), \
+        "dryrun_multichip_eval: 2 reads a rank (frames 1 and 2), banks isolated"
+    out.update(dryrun=[dict(rank=r["rank"], loss=r["loss"], rank_loss=r["rank_loss"],
+                            reads=r["reads"]) for r in train],
+               dryrun_eval=[dict(rank=r["rank"], reads=r["reads"], isolated=r["isolated"])
+                            for r in evals],
+               seconds=time.perf_counter() - t9)
+    print(f"  phase 9 took {out['seconds']:.1f} s")
     return out
 
 
@@ -909,6 +937,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from otvm_tpu_torch import set_fp32_numerics
     from otvm_tpu_torch.eval.runner import EvalProtocol, StreamingEvaluator
+    from otvm_tpu_torch.tools.kernel_check import lockstep_check
     from otvm_tpu_torch.kernels import memory_attn as ma
     from otvm_tpu_torch.models.otvm import init_models
 
@@ -962,7 +991,7 @@ def main() -> int:
     ev_plain = StreamingEvaluator(stm_sd, fba_sd, proto, memory_impl="plain")
     torch.cuda.synchronize()
     ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
-    with lockstep_check(torch, ma, "float32") as read_errs:
+    with lockstep_check(torch.float32) as read_errs:
         ka, kt, kfps = ev.run_video(frames, tri)
     fp32_launches, fp32_merges = ma.launches, merges(ma)
     pa, pt, _ = ev_plain.run_video(frames, tri)
@@ -998,7 +1027,7 @@ def main() -> int:
     print("phase 5: full-width stage-4 stream, bf16, timed")
     ev16 = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(
         memory_max_num=MAX_MEM, memory_skip_frame=SKIP, dtype="bf16"))
-    with lockstep_check(torch, ma, "bfloat16") as read_errs16:   # warm-up, both bank branches
+    with lockstep_check(torch.bfloat16) as read_errs16:   # warm-up, both bank branches
         ev16.run_video(frames[:12], tri)
     print(f"  warm-up: every bf16 read vs plain on its own inputs: rel err <= "
           f"{max(read_errs16):.3e}")
@@ -1048,6 +1077,10 @@ def main() -> int:
           f"512x512: {kfps:.3f}); --streams 2 {entry['eval --streams 2']['results']['fps']:.3f} "
           f"aggregate, unchecked")
 
+    print("phase 9: data parallelism, 2 ranks on the card over gloo")
+    torch.cuda.empty_cache()
+    ddp = ddp_phase(torch, ma, card)
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the bf16 stream's launches; every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -1079,6 +1112,7 @@ def main() -> int:
                             f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
          "serving_paths": serving,
          "entry_points": entry,
+         "data_parallel": ddp,
          "l2_merge_beside_held_sms": held,
          "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)

@@ -17,21 +17,32 @@ directory, every `--save-every` epochs and at the last; the run's logs and
 config.yaml to <cfg.system.outdir>/<model>/.  --init chains a prior stage
 (a released .pth, or a port checkpoint: its networks, a fresh optimizer),
 --init-trimap the STM alone, --resume a run (networks, optimizer, step).
-One process on one device: data parallelism (ROADMAP.md §1 item 5) is not
-ported yet.
+
+Data parallelism: launched as N ranks by torchrun (`torchrun
+--nproc_per_node N -m otvm_tpu_torch.cli.train ...`), each rank joins the
+process group (parallel/dist.py init_distributed: NCCL, one card a rank;
+gloo with --device cpu), takes cfg.train.batch_size / N rows of each
+global batch from the epoch's order strided by its rank (epoch_indices),
+the Loader seed shared, and the step averages the gradients over the ranks
+(train/trainer.py).  Rank 0 alone owns the run directory: it creates the
+logger and config.yaml (the JAX CLI has every process call create_logger),
+draws the image grids, writes the log lines (the losses averaged over the
+ranks, the global batch's, as JAX logs them) and saves the checkpoints.
+WORLD_SIZE > 1 without the rest of torchrun's rendezvous raises.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import os
 from typing import Dict, Optional, Sequence
 
-from .. import resolve_device
 from ..config import Config, get_cfg_defaults, get_model_name
 from ..convert import load_pth
 from ..data.datasets import DIMTrain, VM108Train, vm108_max_skip_for_epoch
 from ..data.loader import Loader, encode_wire, epoch_indices
+from ..parallel import dist as D
 from ..train.trainer import init_train_state, make_train_step, make_viz_forward
 from ..utils.checkpoint import restore_params_only, restore_train_state, save_train_state
 from ..utils.logging import AverageMeter, StepTimer, create_logger
@@ -76,13 +87,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def single_process() -> None:
-    """The port's CLIs run one process: N processes launched with a
-    WORLD_SIZE would each train alone on its own batches."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise RuntimeError(f"WORLD_SIZE={world}: the port's training CLIs run one process on "
-                           "one card; data parallelism (DDP) is ROADMAP.md §1 item 5")
+def per_rank_batch(cfg: Config) -> int:
+    """This rank's rows of the global batch (train.py:179)."""
+    world = D.process_count()
+    if cfg.train.batch_size % world:
+        raise ValueError(f"global batch {cfg.train.batch_size} over {world} ranks")
+    return cfg.train.batch_size // world
+
+
+def rank_logger(outdir: str, name: str):
+    """(logger, run directory): create_logger's on rank 0; on the other
+    ranks a logger that writes nothing, and no directory."""
+    if D.process_index() == 0:
+        return create_logger(outdir, name)
+    logger = logging.getLogger(f"otvm.{name}.rank{D.process_index()}")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger, None
 
 
 def apply_overrides(cfg: Config, args: argparse.Namespace) -> None:
@@ -126,20 +148,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Trains; returns {'state': the TrainState, 'losses': the logged
     losses, 'start_epoch', 'run_dir'}."""
     args = parse_args(argv)
-    single_process()
-    device = resolve_device(args.device)
+    device = D.init_distributed(args.device)
+    rank, group = D.process_index(), D.data_group()
     cfg = get_cfg_defaults()
     cfg.train.stage = args.stage
     apply_overrides(cfg, args)
     if args.save_every:
         cfg.train.save_every_epoch = args.save_every
+    batch_size = per_rank_batch(cfg)
 
     model_name = get_model_name(cfg)
-    logger, run_dir = create_logger(cfg.system.outdir, model_name)
-    logger.info(f"stage {args.stage} | device {device} | batch {cfg.train.batch_size}")
-    import yaml
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:   # train.py:76-77
-        yaml.safe_dump(dataclasses.asdict(cfg), f)
+    logger, run_dir = rank_logger(cfg.system.outdir, model_name)
+    logger.info(f"stage {args.stage} | device {device} | ranks {D.process_count()} "
+                f"| global batch {cfg.train.batch_size}")
+    if rank == 0:
+        import yaml
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:   # train.py:76-77
+            yaml.safe_dump(dataclasses.asdict(cfg), f)
 
     hw = cfg.train.train_input_size
     if args.stage == 4:
@@ -150,7 +175,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     iters_per_epoch = max(len(dataset) * args.repeats // cfg.train.batch_size, 1)
 
     # a fresh optimizer: loading weights in place keeps its parameters
-    state = init_train_state(cfg, cfg.system.random_seed, iters_per_epoch, device=device)
+    state = init_train_state(cfg, cfg.system.random_seed, iters_per_epoch, device=device,
+                             group=group)
     if args.init:
         if args.init.endswith(".pth"):
             stm_sd, fba_sd = load_pth(args.init)
@@ -175,11 +201,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     for epoch in range(start_epoch, total_epochs):
         if args.stage == 4:
             dataset.max_skip = vm108_max_skip_for_epoch(epoch, cfg.train.total_epochs)
-        idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed)
-        loader = Loader(dataset, idx, cfg.train.batch_size, seed=cfg.system.random_seed + epoch,
+        idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed,
+                            rank, D.process_count())
+        loader = Loader(dataset, idx, batch_size, seed=cfg.system.random_seed + epoch,
                         num_threads=cfg.system.num_workers)
-        # the loss stays on the device between log lines: one sync per 50
-        # steps (the reference syncs at PRINT_FREQ, train.py:379-386)
+        # the loss stays on the device between log lines: one sync (and one
+        # collective) per 50 steps (the reference syncs at PRINT_FREQ,
+        # train.py:379-386)
         loss_acc, n_acc = None, 0
         for i, batch in enumerate(loader):
             if cfg.system.testmode and i > 20:
@@ -188,21 +216,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             state, metrics = train_step(state, wire)
             loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
             n_acc += 1
-            if image_freq and i % image_freq == 0:
+            if image_freq and i % image_freq == 0 and rank == 0:
                 viz_forward = viz_forward or make_viz_forward(cfg)
                 save_train_grid(os.path.join(run_dir, "images", f"e{epoch}_i{i}.jpg"), batch,
                                 viz_forward(state, wire))
             dt = timer.tick()
             if i % 50 == 0:
-                loss = float(metrics["loss"])
+                names = ("loss", "L_alpha_comp", "L_lap", "L_grad", "L_tri")
+                loss, *comps, acc = (x.item() for x in D.all_reduce_mean(
+                    [metrics[k] for k in names] + [loss_acc / n_acc], group))
                 losses.append(loss)
-                loss_meter.update(float(loss_acc) / n_acc, n_acc)
+                loss_meter.update(acc, n_acc)
                 loss_acc, n_acc = None, 0
-                comps = " ".join(f"{k}={float(metrics[k]):.4f}"
-                                 for k in ("L_alpha_comp", "L_lap", "L_grad", "L_tri"))
+                comps = " ".join(f"{k}={v:.4f}" for k, v in zip(names[1:], comps))
                 logger.info(f"E{epoch} I{i} loss {loss:.4f} ({loss_meter.avg:.4f}) {comps} "
                             f"{dt * 1000:.0f} ms/it")
-        if (epoch + 1) % cfg.train.save_every_epoch == 0 or epoch == total_epochs - 1:
+        if rank == 0 and ((epoch + 1) % cfg.train.save_every_epoch == 0
+                          or epoch == total_epochs - 1):
             save_train_state(os.path.join(run_dir, f"ckpt_e{epoch + 1}"), state)
             save_train_state(os.path.join("weights", model_name), state)
             logger.info(f"saved checkpoint at epoch {epoch + 1}")
@@ -211,3 +241,4 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
 if __name__ == "__main__":
     main()
+    D.shutdown()

@@ -9,7 +9,9 @@ The JAX CLI's flags, names and defaults, and `--device` (default cuda).
 Each epoch saves weights/s1_OTVM_trimap under the working directory; the
 log line carries the reference's in-training IoU (eval/metrics.py
 reference_iou) of the propagated frames (1 and on) of the logged batch.
-One process on one device, as cli/train.py.
+Data parallelism as cli/train.py's (torchrun, N ranks; rank 0 alone logs
+and saves, the CE averaged over the ranks); the IoU is taken on rank 0's
+own rows, as the JAX CLI takes it on process 0's (host_local).
 """
 from __future__ import annotations
 
@@ -17,16 +19,16 @@ import argparse
 import os
 from typing import Dict, Optional, Sequence
 
-from .. import resolve_device
 from ..config import get_cfg_defaults
 from ..convert import load_pth
 from ..data.datasets import DIMTrain
 from ..data.loader import Loader, encode_wire, epoch_indices
 from ..eval.metrics import reference_iou
+from ..parallel import dist as D
 from ..train.trainer import init_train_state, make_trimap_s1_train_step
 from ..utils.checkpoint import save_train_state
-from ..utils.logging import AverageMeter, create_logger
-from .train import apply_overrides, resume, single_process
+from ..utils.logging import AverageMeter
+from .train import apply_overrides, per_rank_batch, rank_logger, resume
 
 MODEL_NAME = "s1_OTVM_trimap"
 
@@ -67,17 +69,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.init and not args.init.endswith(".pth"):
         # the JAX CLI reads only a .pth here, and passes over any other path
         raise ValueError(f"--init {args.init}: takes a released .pth (STM_weights.pth)")
-    single_process()
-    device = resolve_device(args.device)
+    device = D.init_distributed(args.device)
+    rank, group = D.process_index(), D.data_group()
     cfg = get_cfg_defaults()
     cfg.train.stage = 1
     apply_overrides(cfg, args)
-    logger, run_dir = create_logger(cfg.system.outdir, MODEL_NAME)
+    batch_size = per_rank_batch(cfg)
+    logger, run_dir = rank_logger(cfg.system.outdir, MODEL_NAME)
 
     dataset = DIMTrain.from_adobe_layout(cfg.dataset.path, image_shape=cfg.train.train_input_size,
                                          sample_length=cfg.train.frame_num)
     iters_per_epoch = max(len(dataset) * args.repeats // cfg.train.batch_size, 1)
-    state = init_train_state(cfg, cfg.system.random_seed, iters_per_epoch, device=device)
+    state = init_train_state(cfg, cfg.system.random_seed, iters_per_epoch, device=device,
+                             group=group)
     if args.init:
         state.stm.load_state_dict(load_pth(args.init)[0], strict=True)
     start_epoch = resume(args.resume, state, iters_per_epoch, cfg.train.total_epochs, logger)
@@ -87,8 +91,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     losses, ious = [], []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs
     for epoch in range(start_epoch, total_epochs):
-        idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed)
-        loader = Loader(dataset, idx, cfg.train.batch_size, seed=cfg.system.random_seed + epoch,
+        idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed,
+                            rank, D.process_count())
+        loader = Loader(dataset, idx, batch_size, seed=cfg.system.random_seed + epoch,
                         num_threads=cfg.system.num_workers)
         # the loss stays on the device between log lines (one sync per 50 steps)
         loss_acc, n_acc = None, 0
@@ -102,7 +107,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
             n_acc += 1
             if i % 50 == 0:
-                meter.update(float(loss_acc) / n_acc, n_acc)
+                meter.update(D.all_reduce_mean([loss_acc / n_acc], group)[0].item(), n_acc)
                 losses.append(meter.val)
                 loss_acc, n_acc = None, 0
                 # frame 0 is the GT trimap: only the propagated frames score
@@ -112,9 +117,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 ious.append(iou_meter.val)
                 logger.info(f"E{epoch} I{i} CE {meter.val:.4f} ({meter.avg:.4f}) "
                             f"IoU {iou_meter.val:.2f} ({iou_meter.avg:.2f})")
-        save_train_state(os.path.join("weights", MODEL_NAME), state)
+        if rank == 0:
+            save_train_state(os.path.join("weights", MODEL_NAME), state)
     return dict(state=state, losses=losses, ious=ious, start_epoch=start_epoch, run_dir=run_dir)
 
 
 if __name__ == "__main__":
     main()
+    D.shutdown()

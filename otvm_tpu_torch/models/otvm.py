@@ -214,7 +214,7 @@ def _checkpointed(fn):
 
 def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stage: int,
                         compute_dtype: Optional[torch.dtype] = None, remat: bool = False,
-                        exact_edt: bool = False):
+                        exact_edt: bool = False, group=None):
     """Training forward and loss of stage 1-4 (alpha FullModel.forward,
     models/alpha/model.py:189-312), on the device of the modules and batch.
 
@@ -232,7 +232,11 @@ def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stag
     masters, and ground truth and the loss arithmetic stay fp32.
     remat=True recomputes each network call and frame loss in the backward
     pass (torch.utils.checkpoint), as the JAX package's OTVM_REMAT=1 does:
-    the reads then run twice.  exact_edt: the clicks from the exact EDT."""
+    the reads then run twice.  exact_edt: the clicks from the exact EDT.
+    group: the data-parallel ranks whose rows make up the global batch
+    (parallel/dist.py), for the exclusion loss's batch means; None: the
+    batch is the whole batch.  The loss is this rank's rows' part: its
+    mean over the ranks is the global batch's loss."""
     refinement = stage > 2
     if fba.refinement != refinement or (stm.hdim > 0) != refinement:
         raise ValueError(f"the models do not match stage {stage}")
@@ -242,7 +246,7 @@ def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stag
     fba_call = ckpt(fba_c)
     stm_memorize = ckpt(functools.partial(stm_c, "memorize"))
     stm_segment = ckpt(lambda im, ks, vs: stm_c("segment", im, ks, vs))
-    frame_loss = ckpt(functools.partial(L.fba_frame_loss, include_lap=False))
+    frame_loss = ckpt(functools.partial(L.fba_frame_loss, include_lap=False, group=group))
 
     fg, bg, gt_alpha, tri = batch["fg"], batch["bg"], batch["alpha"], batch["tri"]
     B, S = fg.shape[:2]

@@ -1,0 +1,253 @@
+"""Data parallelism across processes, counterpart of otvm_tpu/parallel/mesh.py.
+
+The JAX package's data parallelism is a 1-D mesh over every device: the
+batch is sharded on its 'data' axis, the train state replicated, and jit
+inserts the gradient all-reduce, so every mean inside the jitted step is a
+mean over the global batch.  Here each rank is one process on one device
+(torchrun's env:// rendezvous, or `spawn`) holding its rows of the global
+batch and a whole copy of the train state:
+
+  * init_distributed: the process group from the environment, NCCL on
+    CUDA and gloo on the CPU (or gloo on CUDA tensors, asked for by name);
+  * all_reduce_gradients: after the backward pass, every rank's gradients
+    averaged in flat buckets, so the optimizer sees the global batch's
+    gradient;
+  * GlobalSum and batch_means: a mean over the global batch inside the
+    loss, for the one term that is not linear in the batch (the exclusion
+    loss's ratio of two means, train/losses.py);
+  * all_reduce_mean, all_gather_rows, ranks_equal: log lines and checks;
+  * spawn: N ranks on this host in fresh processes, the env:// variables set.
+
+Why an explicit all-reduce and not DistributedDataParallel: GlobalSum's
+collectives run inside the forward and backward passes (and again in the
+recomputed forward under remat), and every rank must issue its collectives
+in one order.  DDP's bucket hooks fire from the autograd engine while the
+backward runs, interleaved with them; one bucketed all-reduce after the
+backward keeps the order fixed, needs no buffer broadcast (a rank-0-only
+forward such as the training image grid stays local), and treats a
+parameter that no rank's loss reaches (the STM at joint stage 1) as the
+1-process step does.
+"""
+from __future__ import annotations
+
+import os
+import socket
+from typing import Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+
+_RENDEZVOUS = ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+BUCKET_BYTES = 25 << 20     # DistributedDataParallel's default bucket
+
+
+def init_distributed(device=None, backend: Optional[str] = None) -> torch.device:
+    """Joins the process group that torchrun's environment describes
+    (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and returns
+    this rank's device: CUDA unless `device` says otherwise, card
+    LOCAL_RANK (made current).  The backend is NCCL on CUDA and gloo on the
+    CPU unless `backend` names one; with gloo, ranks may share cards (card
+    LOCAL_RANK % the card count), with NCCL they may not.  Without
+    WORLD_SIZE > 1 it joins nothing and returns resolve_device(device);
+    WORLD_SIZE > 1 without the rest of the rendezvous raises."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    device = resolve_device(device)
+    if world <= 1:
+        return device
+    missing = [k for k in _RENDEZVOUS if not os.environ.get(k)]
+    if missing:
+        raise RuntimeError(f"WORLD_SIZE={world} without {', '.join(missing)}: launch the ranks "
+                           "with torchrun (or otvm_tpu_torch.parallel.dist.spawn)")
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        local, cards = int(os.environ["LOCAL_RANK"]), torch.cuda.device_count()
+        if local >= cards and backend == "nccl":
+            raise RuntimeError(f"local rank {local} with {cards} card(s): NCCL takes one card a "
+                               "rank (gloo, asked for by name, lets ranks share one)")
+        device = torch.device("cuda", local % cards)
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
+                                world_size=world)
+    return device
+
+
+def process_index() -> int:
+    """This process's rank (jax.process_index's counterpart); 0 alone."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of ranks (jax.process_count's counterpart); 1 alone."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def backend() -> Optional[str]:
+    """The process group's backend ('nccl', 'gloo'); None alone."""
+    return dist.get_backend() if dist.is_initialized() else None
+
+
+def data_group():
+    """The group of every rank where there are several, else None (one
+    process: every reduction is local)."""
+    return dist.group.WORLD if process_count() > 1 else None
+
+
+def shutdown() -> None:
+    """Leaves the process group, once every rank has reached this point."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+class GlobalSum(torch.autograd.Function):
+    """x summed over the ranks of `group`.  Backward: the gradient summed
+    over the ranks, since every rank's loss depends on every rank's x."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def batch_means(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The mean of each tensor over the global batch: its elements on every
+    rank of `group` (each rank holding a batch of the same shape), in one
+    collective; with no group, each tensor's own mean.
+
+    The gradient is the global mean loss's: rank r's loss reaches rank s's
+    tensors through the sums, GlobalSum's backward hands each rank the sum
+    over ranks of d loss_r / d sum, and all_reduce_gradients' mean over
+    ranks then gives the gradient of (1/R) sum_r loss_r."""
+    if group is None:
+        return [t.mean() for t in tensors]
+    sums = GlobalSum.apply(torch.stack([t.sum() for t in tensors]), group)
+    world = dist.get_world_size(group)
+    return [s / float(t.numel() * world) for s, t in zip(sums.unbind(), tensors)]
+
+
+def all_reduce_gradients(params: Sequence[torch.nn.Parameter], group=None,
+                         bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Each parameter's .grad becomes the mean over the ranks of `group`, in
+    flat buckets of about `bucket_bytes`.  A gradient that some rank lacks
+    counts there as zero (autograd leaves it None where the loss does not
+    reach the parameter); one that every rank lacks stays None, as in one
+    process (RAdam takes None as a zero gradient)."""
+    params = list(params)
+    if not params:
+        return
+    world = dist.get_world_size(group)
+    held = torch.tensor([float(p.grad is not None) for p in params], device=params[0].device)
+    dist.all_reduce(held, group=group)
+    for p, n in zip(params, held.tolist()):
+        if n and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params if p.grad is not None]
+    bucket, size = [], 0
+    for i, g in enumerate(grads):
+        bucket.append(g)
+        size += g.numel() * g.element_size()
+        last = i == len(grads) - 1
+        if last or size >= bucket_bytes or grads[i + 1].dtype != g.dtype:
+            flat = torch.cat([x.reshape(-1) for x in bucket])
+            dist.all_reduce(flat, group=group)
+            flat /= world
+            for x, piece in zip(bucket, flat.split([x.numel() for x in bucket])):
+                x.copy_(piece.view_as(x))
+            bucket, size = [], 0
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The tensors averaged over the ranks (helpers.py:76-90's
+    reduce_tensor), fp32, in one collective: for log lines, not every step.
+    Alone: the tensors themselves, fp32."""
+    tensors = [t.detach().float() for t in tensors]
+    if group is None and process_count() == 1:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return [piece.view_as(t) for piece, t in zip(flat.split([t.numel() for t in tensors]),
+                                                 tensors)]
+
+
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """[ranks, *x.shape]: every rank's x, by rank (through the host where
+    the backend is gloo, which gathers CPU tensors)."""
+    if group is None and process_count() == 1:
+        return x[None]
+    if dist.get_backend(group) != "nccl":
+        x = x.cpu()
+    x = x.contiguous()
+    rows = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, x, group=group)
+    return torch.stack(rows)
+
+
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def checksums(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """int64 [len(tensors)]: each tensor's bit patterns summed, so that two
+    tensors with a bit apart differ."""
+    return torch.stack([t.detach().contiguous().view(_INT_OF_SIZE[t.element_size()])
+                        .to(torch.int64).sum() for t in tensors])
+
+
+def ranks_equal(tensors: Sequence[torch.Tensor], group=None) -> bool:
+    """Whether every rank holds the same bits in `tensors` (by checksums)."""
+    rows = all_gather_rows(checksums(tensors), group)
+    return bool((rows == rows[0]).all())
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, threads: int, queue, fn: Callable, args):
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.set_num_threads(threads)
+    try:
+        queue.put((rank, fn(*args)))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, *args) -> list:
+    """Runs fn(*args) as `world` ranks on this host, each in a fresh
+    process (spawned: a module-level fn, picklable args) with torchrun's
+    variables set (RANK = LOCAL_RANK, WORLD_SIZE, MASTER_ADDR localhost, a
+    free MASTER_PORT) and this process's CPU threads shared among them.
+    fn joins the group itself (init_distributed).  Returns each rank's
+    return value, by rank; a rank that raises makes this raise."""
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    threads = max(1, torch.get_num_threads() // world)
+    context = mp.start_processes(_rank_main, args=(world, _free_port(), threads, queue, fn, args),
+                                 nprocs=world, join=False, start_method="spawn")
+    results = {}
+    while True:
+        while not queue.empty():
+            rank, value = queue.get()
+            results[rank] = value
+        if context.join(timeout=1.0):
+            break
+    while not queue.empty():
+        rank, value = queue.get()
+        results[rank] = value
+    return [results[r] for r in range(world)]

@@ -3,10 +3,13 @@
 `rel_err` and its tolerances are the comparison that chip_smoke.py and the
 card tests make; `control` makes the lower-precision input that shows the
 comparison can fail; `plain_read_grads` is what the read's gradients are
-held to.  `device_ms` and `event_ms` are the timers of
-chip_smoke.py and tools/bench_memory_read.py.
+held to; `lockstep_check` and `lockstep_grad_check` hold every read of a
+path to the plain read while it runs.  `device_ms` and `event_ms` are the
+timers of chip_smoke.py and tools/bench_memory_read.py.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -48,6 +51,57 @@ def plain_read_grads(q_k, m_k, m_v, slot_mask, g):
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q_k, m_k, m_v)]
         return torch.autograd.grad(memory_read_plain(*leaves, slot_mask), leaves, g)
+
+
+@contextlib.contextmanager
+def lockstep_check(dtype: torch.dtype):
+    """While active, every launch of the read kernel (memory_read_cuda) is
+    also computed by the plain version on the same inputs and held to
+    READ_TOL[dtype]; yields the list of norm-relative errors per read.  The
+    plain calls launch no kernel."""
+    from ..kernels import memory_attn as ma
+
+    launch, errs = ma.memory_read_cuda, []
+    tol = READ_TOL[dtype]
+
+    def checked(q, k, v, mask):
+        out = launch(q, k, v, mask)
+        want = ma.memory_read_plain(q, k, v, mask)
+        errs.append(rel_err(out, want))
+        assert errs[-1] <= tol, f"kernel != plain on the stream's read {len(errs) - 1}: " \
+            f"rel err {errs[-1]:.3e} > {tol:g}"
+        return out
+
+    ma.memory_read_cuda = checked
+    try:
+        yield errs
+    finally:
+        ma.memory_read_cuda = launch
+
+
+@contextlib.contextmanager
+def lockstep_grad_check(dtype: torch.dtype):
+    """While active, every backward of the read (the autograd Function's
+    memory_read_vjp_plain) is also computed by autograd through the plain
+    read on the same inputs and held to GRAD_TOL[dtype]; yields the list of
+    the largest of the three gradients' norm-relative errors per backward."""
+    from ..kernels import memory_attn as ma
+
+    vjp, errs = ma.memory_read_vjp_plain, []
+    tol = GRAD_TOL[dtype]
+
+    def checked(q, k, v, mask, g):
+        grads = vjp(q, k, v, mask, g)
+        errs.append(max(rel_err(a, w) for a, w in zip(grads, plain_read_grads(q, k, v, mask, g))))
+        assert errs[-1] <= tol, f"read backward != autograd through the plain read, backward " \
+            f"{len(errs) - 1}: rel err {errs[-1]:.3e} > {tol:g}"
+        return grads
+
+    ma.memory_read_vjp_plain = checked
+    try:
+        yield errs
+    finally:
+        ma.memory_read_vjp_plain = vjp
 
 
 def device_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.ops import divide_pad_amounts
+from ..parallel.dist import batch_means
 
 EPSILON = 1.001e-5
 
@@ -56,13 +57,22 @@ def _avg_pool_2x2(x):
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
-def exclusion_loss(img1, img2, level=3, normalize=True):
+def exclusion_loss(img1, img2, level=3, normalize=True, group=None):
+    """Multiscale gradient exclusion (utils/loss_func.py).  At each level
+    gx2 is scaled by ax = 2 mean|gx1| / mean|gx2| (and gy2 alike): a ratio
+    of two means over the whole batch, which in the JAX package's
+    data-parallel step is the global batch.  `group`: the data-parallel
+    ranks whose rows make up that batch (parallel/dist.py batch_means,
+    through which the gradient reaches every rank's rows); None: this
+    process holds the whole batch."""
     gradx_loss, grady_loss = [], []
     for _ in range(level):
         gx1, gy1 = _gradient(img1)
         gx2, gy2 = _gradient(img2)
-        ax = 2.0 * gx1.abs().mean() / (gx2.abs().mean() + EPSILON)
-        ay = 2.0 * gy1.abs().mean() / (gy2.abs().mean() + EPSILON)
+        m_gx1, m_gx2, m_gy1, m_gy2 = batch_means(
+            [gx1.abs(), gx2.abs(), gy1.abs(), gy2.abs()], group)
+        ax = 2.0 * m_gx1 / (m_gx2 + EPSILON)
+        ay = 2.0 * m_gy1 / (m_gy2 + EPSILON)
         gx1s = torch.sigmoid(gx1) * 2 - 1
         gy1s = torch.sigmoid(gy1) * 2 - 1
         gx2s = torch.sigmoid(gx2 * ax) * 2 - 1
@@ -177,10 +187,14 @@ def lap_loss_diff7(diff7, avg_count, max_levels=5):
 # ---------------------------------------------------------------------------
 
 def fba_frame_loss(pred7, trimask, gt_alpha, fg, bg, img, normalize=True,
-                   include_lap=True):
+                   include_lap=True, group=None):
     """One frame of fba_single_image_loss, NHWC, pred7 [B, H, W, 7].
     Returns (L_alpha_comp, L_grad, L_lap, alpha, comp, F, B);
-    include_lap=False leaves L_lap 0 for `lap_loss_diff7` to take over."""
+    include_lap=False leaves L_lap 0 for `lap_loss_diff7` to take over.
+    group: the data-parallel ranks of the global batch, for the exclusion
+    loss's batch means (None: this process holds the whole batch).  The
+    other terms are means of per-pixel terms over batches of one shape a
+    rank, so the mean over ranks of each rank's value is the global one."""
     alpha = pred7[..., 0:1]
     pred_f = pred7[..., 1:4]
     pred_b = pred7[..., 4:7]
@@ -200,7 +214,7 @@ def fba_frame_loss(pred7, trimask, gt_alpha, fg, bg, img, normalize=True,
     L_alpha_comp = L_a1 + L_ac + 0.25 * (L_FBc + L_FB1)
 
     L_ag = l1_grad(alpha, gt_alpha, normalize=normalize)
-    L_excl = exclusion_loss(c_f, c_b, level=3, normalize=normalize)
+    L_excl = exclusion_loss(c_f, c_b, level=3, normalize=normalize, group=group)
     L_grad = L_ag + 0.25 * L_excl
 
     if include_lap:

@@ -17,6 +17,15 @@ or tensors, float or encode_wire's uint8) is copied there and decoded
 there.  State is updated in place; the step returns it for symmetry with
 the JAX package, and its metrics as device tensors (reading them waits for
 the device).
+
+Data parallelism (the JAX package's data mesh): a state made with a
+process `group` (parallel/dist.py) is one rank's copy; every rank starts
+from the same seeded init (checked), takes its rows of the global batch,
+and after the backward pass the gradients are averaged over the ranks, so
+every rank takes the 1-process step on the global batch.  The exclusion
+loss's batch means are taken over the global batch too.  A step's metrics
+are this rank's rows' (all_reduce_mean gives the global batch's, at log
+lines).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from ..data.loader import decode_wire
 from ..models.fba import FBA
 from ..models.otvm import init_models, joint_train_forward, trimap_train_forward
 from ..models.stm import STM
+from ..parallel import dist as D
 from . import losses as L
 from .optim import SCHEDULES, RAdam
 
@@ -41,6 +51,7 @@ class TrainState:
     fba: FBA
     optimizer: RAdam
     step: int = 0
+    group: Optional[object] = None      # the data-parallel ranks (None: one process)
 
     @property
     def device(self) -> torch.device:
@@ -65,20 +76,25 @@ def make_optimizer(cfg: Config, stm: STM, fba: FBA, iters_per_epoch: int) -> RAd
 
 
 def init_train_state(cfg: Config, seed: int = 0, iters_per_epoch: int = 1,
-                     device=None) -> TrainState:
+                     device=None, group=None) -> TrainState:
     """Both networks of cfg.train.stage (FBA on cfg.alpha.arch's trunk) with
     random weights drawn from `seed` (flax's default init), on CUDA unless `device` says otherwise,
     the frozen one (stage 2 or 3) without gradients, and a fresh optimizer.
     fp32 runs with TF32 off (set_fp32_numerics), as the JAX reference
-    does at its highest precision."""
+    does at its highest precision.  group: this rank's process group
+    (parallel/dist.py data_group()); every rank must draw the same weights,
+    and a rank whose differ raises."""
     device = resolve_device(device)
     set_fp32_numerics()
     stm, fba = init_models(seed, cfg.train.stage, cfg.model_scale, cfg.stm_norm, cfg.alpha.arch)
     stm, fba = stm.to(device), fba.to(device)
+    if group is not None and not D.ranks_equal(
+            [*stm.state_dict().values(), *fba.state_dict().values()], group):
+        raise RuntimeError(f"the ranks' inits from seed {seed} differ")
     trainable = stage_trainable_mask(cfg.train.stage)
     stm.requires_grad_(trainable["stm"])
     fba.requires_grad_(trainable["fba"])
-    return TrainState(stm, fba, make_optimizer(cfg, stm, fba, iters_per_epoch))
+    return TrainState(stm, fba, make_optimizer(cfg, stm, fba, iters_per_epoch), group=group)
 
 
 def _compute_dtype(cfg: Config) -> Optional[torch.dtype]:
@@ -92,19 +108,24 @@ def _on_device(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
 def _apply(state: TrainState, loss: torch.Tensor) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if state.group is not None:
+        D.all_reduce_gradients(state.optimizer.param_groups[0]["params"], state.group)
     state.optimizer.step()
     state.step += 1
 
 
-def make_train_step(cfg: Config) -> Callable:
+def make_train_step(cfg: Config, remat: bool = False) -> Callable:
     """train_step(state, batch) -> (state, metrics): decode the batch on the
     device, the stage's joint forward and loss, backward, one RAdam step.
-    metrics: loss, L_alpha_comp, L_lap, L_grad, L_tri (0-d tensors)."""
+    metrics: loss, L_alpha_comp, L_lap, L_grad, L_tri (0-d tensors).
+    remat: recompute the network calls and frame losses in the backward
+    pass (joint_train_forward's remat, the JAX package's OTVM_REMAT=1)."""
     stage, cdt = cfg.train.stage, _compute_dtype(cfg)
 
     def train_step(state: TrainState, batch: Mapping):
         batch = _on_device(batch, state.device)
-        loss, aux = joint_train_forward(state.stm, state.fba, batch, stage, compute_dtype=cdt)
+        loss, aux = joint_train_forward(state.stm, state.fba, batch, stage, compute_dtype=cdt,
+                                        remat=remat, group=state.group)
         _apply(state, loss)
         metrics = dict(loss=loss, **{k: aux[k] for k in ("L_alpha_comp", "L_lap", "L_grad",
                                                          "L_tri")})
@@ -116,7 +137,8 @@ def make_train_step(cfg: Config) -> Callable:
 def make_viz_forward(cfg: Config) -> Callable:
     """viz_forward(state, batch) -> {'alphas', 'comps'}: the stage's joint
     forward without gradients, fp32, for the training image grids
-    (train.py:255-275, utils/viz.py:save_train_grid); numpy [B, S, H, W, 1|3]."""
+    (train.py:255-275, utils/viz.py:save_train_grid); numpy [B, S, H, W, 1|3].
+    It runs on this rank alone (no collective), so rank 0 may call it."""
     stage = cfg.train.stage
 
     @torch.no_grad()

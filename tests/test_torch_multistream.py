@@ -86,3 +86,23 @@ def test_multistream_refuses_the_given_trimap_stages():
                               device="cpu")
     with pytest.raises(ValueError, match="joint path"):
         ev.run_videos([_clip(1, 2, 32, 32)])
+
+
+def test_multistream_bench_tool(capsys):
+    """tools/multistream_bench.py (scripts/multistream_bench.py's flags as
+    options) on the CPU at a small size: its JSON line, and the frames it
+    cycles drawn as the JAX script draws them."""
+    import json
+
+    from otvm_tpu_torch.tools import multistream_bench as bench
+
+    out = bench.main(["--device", "cpu", "--streams", "2", "--res", "64x64", "--frames", "3",
+                      "--dtype", "fp32"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert out["metric"] == "fps_64x64_2streams_wire_joint_s4" and out["value"] > 0
+    assert (out["streams"], out["dtype"], out["device"]) == (2, "fp32", "cpu")
+    video = bench.make_video(1, 6, 32, 48)
+    rng = np.random.RandomState(1)
+    unique = [rng.rand(32, 48, 3).astype(np.float32) for _ in range(4)]
+    assert all(np.array_equal(f, unique[i % 4]) for i, f in enumerate(video["frames"]))
+    np.testing.assert_array_equal(video["first_trimap"], _clip(0, 1, 32, 48)["first_trimap"])

@@ -118,9 +118,14 @@ def test_image_grids_and_bare_pth_init(data_root, scaled, monkeypatch):
 
 
 def test_one_process_and_cuda_by_default(data_root, scaled, monkeypatch):
+    """WORLD_SIZE > 1 without torchrun's rendezvous raises (no rank trains
+    alone); without a card, the default device raises."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    for key in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     for main, extra in ((cli_train.main, ["--stage", "4"]), (cli_s1.main, [])):
-        with pytest.raises(RuntimeError, match="DDP"):
+        with pytest.raises(RuntimeError, match="WORLD_SIZE=2 without RANK, LOCAL_RANK, "
+                                               "MASTER_ADDR, MASTER_PORT"):
             main(_args(data_root) + extra)
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
