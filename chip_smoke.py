@@ -88,9 +88,25 @@ Phases, in order; any failure exits non-zero:
      global batches, and the losses (rtol 1e-5), RAdam's moments and the
      parameters' change (norm-relative 1e-4) must agree; the 2-rank step's
      ms beside the 1-process one's and the gloo all-reduce's; then
-     entry.py's dryrun_multichip(2) and dryrun_multichip_eval(2) over gloo.
-The line before the last is a JSON object with the kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+     entry.py's dryrun_multichip(2) and dryrun_multichip_eval(2) over gloo;
+ 10. the compiled serving steps (otvm_tpu_torch/models/graphs.py: each
+     frame's step replayed from a CUDA graph, the evaluators' default on
+     CUDA), against the eager steps: the full-width 512x512 stream
+     (30 frames) in fp32 and in bf16, a run that captures and a run that
+     only replays, each equal to the eager stream bit for bit with 29 reads
+     counted (replays included); captures, their seconds, frames/s and peak
+     memory of each path; bf16 multi-stream (30, 17, 30 frames; 74 reads),
+     chunk 8 (29), trimap propagation alone (fp32, 29) and stage 2 on given
+     trimaps (0) equal to their eager runs bit for bit; a graph
+     captured or replayed under a lockstep check refused; and every mode of
+     the port's bench (python -m otvm_tpu_torch.bench, BENCH_FRAMES 60):
+     default, BENCH_WIRE_OUT=1, BENCH_BATCH=4, BENCH_CHUNK=8 and default with
+     --eager, each line printed.
+Phases 4-8 check every read of their fp32 paths in lockstep, so those paths
+run eagerly (graphs=False, the eval CLI's --eager); the others, phase 5's
+timed bf16 stream (the main path) among them, are graphed.  The line before the last is a JSON
+object with the kernel's numbers (launch counts include graph replays);
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -528,7 +544,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     same = lambda xs, ys: len(xs) == len(ys) and all(np.array_equal(x, y) for x, y in zip(xs, ys))
 
     # multi-stream, fp32: A (30 frames), B (17, another seed), C = A again
-    multi = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", **proto))
+    multi = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", **proto), graphs=False)
     serial_b = multi.run_video(frames_b, tri_b)[:2]
     reset_counts(torch, ma)
     with lockstep_check(torch.float32) as errs:
@@ -551,9 +567,9 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     assert all(equal), "the multi-stream outputs differ from the serial streams'"
     del multi
 
-    # multi-stream, bf16, timed (after a short warm-up)
+    # multi-stream, bf16, graphed, timed after a warm-up that captures its graphs
     multi16 = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="bf16", **proto))
-    multi16.run_videos([dict(frames=frames[:3], first_trimap=tri)] * 2)
+    multi16.run_videos(clips)
     reset_counts(torch, ma)
     results16, fps16 = multi16.run_videos(clips)
     out["multistream_bf16"] = dict(launches=ma.launches, merges=merges(ma), frames_per_s=fps16)
@@ -565,7 +581,8 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     del multi16
 
     # chunked, fp32: 8 frames a call over 30, the last chunk short
-    chunked = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", chunk=8, **proto))
+    chunked = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="fp32", chunk=8, **proto),
+                                 graphs=False)
     reset_counts(torch, ma)
     with lockstep_check(torch.float32) as errs:
         ca, ct, cfps = chunked.run_video(frames, tri)
@@ -579,7 +596,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
 
     # trimap propagation alone, fp32: the stage-1 STM
     stm1 = init_models(seed=3, stage=1)[0].state_dict()
-    trimap_ev = TrimapEvaluator(stm1, EvalProtocol(**proto))
+    trimap_ev = TrimapEvaluator(stm1, EvalProtocol(**proto), graphs=False)
     reset_counts(torch, ma)
     with lockstep_check(torch.float32) as errs:
         tris, tfps = trimap_ev.run_video(frames, tri)
@@ -628,7 +645,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     # the BN FBA trunk, stage 4, fp32
     stm_bn, fba_bn = init_models(seed=5, stage=4, arch="resnet50_BN")
     bn = StreamingEvaluator(stm_bn.state_dict(), fba_bn.state_dict(),
-                            EvalProtocol(arch="resnet50_BN", **proto))
+                            EvalProtocol(arch="resnet50_BN", **proto), graphs=False)
     reset_counts(torch, ma)
     with lockstep_check(torch.float32) as errs:
         ba, bt, _ = bn.run_video(frames[:6], tri)
@@ -780,7 +797,8 @@ def entry_points_phase(torch, ma, card):
 
         n_reads = 2 * (SYNTH_FRAMES - 1)       # memorize every 10th frame: frames 1-11 read
         metric_keys = ("SAD", "MSE", "Grad", "Conn", "SSDA", "dtSSD", "MESSDdt")
-        runs = [("eval", ["--weights", "weights/s4_OTVM", "--outdir", "ev1"], True, n_reads),
+        runs = [("eval", ["--weights", "weights/s4_OTVM", "--outdir", "ev1", "--eager"], True,
+                 n_reads),
                 ("eval --streams 2", ["--weights", "weights/s4_OTVM", "--outdir", "ev2",
                                       "--streams", "2"], False, n_reads),
                 ("eval --trimap-net", ["--trimap-net", "--weights", "weights/s1_OTVM_trimap",
@@ -897,6 +915,176 @@ def ddp_phase(torch, ma, card):
     return out
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with `values` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+BENCH_MODES = [("default", {}, []), ("BENCH_WIRE_OUT=1", {"BENCH_WIRE_OUT": "1"}, []),
+               ("BENCH_BATCH=4", {"BENCH_BATCH": "4"}, []),
+               ("BENCH_CHUNK=8", {"BENCH_CHUNK": "8"}, []), ("default --eager", {}, ["--eager"])]
+
+
+def graphs_phase(torch, ma, card, stm_sd, fba_sd, frames, tri):
+    """Phase 10: the serving step from CUDA graphs against the eager step,
+    at full width, 512x512."""
+    from otvm_tpu_torch import bench
+    from otvm_tpu_torch.eval.runner import (EvalProtocol, MultiStreamEvaluator,
+                                            StreamingEvaluator, TrimapEvaluator)
+    from otvm_tpu_torch.models.graphs import FrameStepGraphs, max_graphs
+    from otvm_tpu_torch.models.otvm import init_models, make_eval_bank, serving_models
+    from otvm_tpu_torch.tools.kernel_check import lockstep_check
+
+    t10 = time.perf_counter()
+    proto = dict(memory_max_num=MAX_MEM, memory_skip_frame=SKIP)
+    same = lambda xs, ys: len(xs) == len(ys) and all(np.array_equal(x, y) for x, y in zip(xs, ys))
+    out = {}
+
+    def timed_run(ev, clips=None):
+        """(outputs, frames/s, reads, peak GB, reserved GB) of one run."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(torch, ma)
+        res = ev.run_video(frames, tri) if clips is None else ev.run_videos(clips)
+        torch.cuda.synchronize()
+        return (res, ma.launches, torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.memory_reserved() / 1e9)
+
+    streams = {}
+    for dname in ("fp32", "bf16"):
+        eager = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype=dname, **proto),
+                                   graphs=False)
+        graphed = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype=dname, **proto))
+        g = graphed.step_graphs
+        row = {}
+        for turn in ("first", "second"):
+            for name, ev in (("eager", eager), ("graphs", graphed)):
+                captures, capture_s = g.captures, g.capture_s
+                (a, t, fps), reads, peak, reserved = timed_run(ev)
+                row[f"{name} {turn}"] = dict(frames_per_s=fps, reads=reads, peak_gb=peak,
+                                             reserved_gb=reserved)
+                if name == "graphs":
+                    row[f"{name} {turn}"].update(captures=g.captures - captures,
+                                                 capture_s=g.capture_s - capture_s,
+                                                 equal=same(a, ea) and same(t, et))
+                else:
+                    ea, et = a, t
+                assert reads == N_FRAMES - 1, f"{dname} {name} {turn} run: {reads} reads"
+        streams[dname] = row
+        check_outputs(ea, et, N_FRAMES, f"{dname} eager stream (phase 10)")
+        print(f"  {dname} stream, 30 frames: " + "; ".join(
+            f"{k}: {v['frames_per_s']:.3f} frames/s, {v['reads']} reads, peak "
+            f"{v['peak_gb']:.2f} GB (reserved {v['reserved_gb']:.2f})" +
+            (f", {v['captures']} captures in {v['capture_s']:.2f} s, equal to eager bit for "
+             f"bit {v['equal']}" if "equal" in v else "") for k, v in row.items()))
+        assert row["graphs first"]["captures"] == 7 and row["graphs second"]["captures"] == 0, \
+            "a 30-frame stream meets 7 keys: captured in the first run, replayed in the second"
+        assert row["graphs first"]["equal"] and row["graphs second"]["equal"], \
+            f"the graphed {dname} stream differs from the eager one"
+        assert g.graphs_per_bucket() == [7] and 7 <= max_graphs(MAX_MEM)
+        if dname == "bf16":
+            eager16, graphed16, ref16 = eager, graphed, (ea, et)
+        del eager, graphed
+    out["stream"] = streams
+
+    # multi-stream, bf16: A (30 frames), B (17), C = A again; chunk 8
+    frames_b, tri_b = make_video(17, seed=1)
+    clips = [dict(frames=frames, first_trimap=tri), dict(frames=frames_b, first_trimap=tri_b),
+             dict(frames=frames, first_trimap=tri)]
+    want = N_FRAMES - 1 + 16 + N_FRAMES - 1
+    paths = {}
+    for name, graphs in (("eager", False), ("graphs", None)):
+        multi = MultiStreamEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="bf16", **proto),
+                                     graphs=graphs)
+        (res, fps), reads, peak, _ = timed_run(multi, clips)
+        paths[name] = (res, dict(frames_per_s=fps, reads=reads, peak_gb=peak))
+        assert reads == want, f"multi-stream {name}: {reads} reads, want {want}"
+    equal = all(same(x[0], y[0]) and same(x[1], y[1])
+                for x, y in zip(paths["graphs"][0], paths["eager"][0]))
+    out["multistream_bf16"] = dict(equal=equal, **{k: v[1] for k, v in paths.items()})
+    print(f"  bf16 multi-stream (30, 17, 30 frames): graphed {paths['graphs'][1]}, eager "
+          f"{paths['eager'][1]}; equal bit for bit {equal} (the graphed run captured its graphs)")
+    assert equal, "the graphed multi-stream outputs differ from the eager ones"
+    chunked = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(dtype="bf16", chunk=8, **proto))
+    (ca, ct, cfps), reads, peak, _ = timed_run(chunked)
+    equal = same(ca, ref16[0]) and same(ct, ref16[1])
+    out["chunk8_bf16"] = dict(equal=equal, frames_per_s=cfps, reads=reads, peak_gb=peak)
+    print(f"  bf16 chunk 8, graphed: {reads} reads, equal to the eager per-frame stream bit for "
+          f"bit {equal}")
+    assert reads == N_FRAMES - 1 and equal, "the graphed chunked stream is not the eager one"
+    del multi, chunked
+
+    # trimap propagation alone (the stage-1 STM, fp32) and stage 2 on given trimaps
+    stm1 = init_models(seed=3, stage=1)[0].state_dict()
+    fba2 = init_models(seed=4, stage=2)[1].state_dict()
+    gts = [tri, tri[::-1].copy(), tri[:, ::-1].copy(), tri, tri]
+    for name, make, run, want in (
+            ("trimap-only", lambda g: TrimapEvaluator(stm1, EvalProtocol(**proto), graphs=g),
+             lambda ev: ev.run_video(frames, tri)[:1], N_FRAMES - 1),
+            ("stage 2, given trimaps", lambda g: StreamingEvaluator(
+                None, fba2, EvalProtocol(stage=2, **proto), graphs=g),
+             lambda ev: ev.run_video(frames[:5], tri, gt_trimaps=gts)[:1], 0)):
+        results = {}
+        for path, graphs in (("eager", False), ("graphs", None)):
+            ev = make(graphs)
+            run(ev)                                       # warm-up (captures)
+            reset_counts(torch, ma)
+            results[path] = (run(ev), ma.launches)
+        equal = all(same(x, y) for x, y in zip(results["graphs"][0], results["eager"][0]))
+        out[name] = dict(equal=equal, reads={k: v[1] for k, v in results.items()})
+        print(f"  {name}, graphed: reads {out[name]['reads']}, equal to eager bit for bit {equal}")
+        assert equal and results["graphs"][1] == results["eager"][1] == want, name
+        del ev
+
+    # a lockstep check cannot see a replayed read: a capture under it, and a
+    # replay of a graph captured before it, are refused
+    refused = {}
+    fresh = FrameStepGraphs(eager16.stm, eager16.fba)
+    bank = make_eval_bank(1, H, W, MAX_MEM, dtype=torch.bfloat16)
+    u8 = torch.from_numpy(np.rint(np.stack(frames[:2]) * 255).astype(np.uint8)).cuda()[:, None]
+    first_tri = torch.from_numpy(tri[None]).cuda().to(torch.bfloat16)
+    for what, run in (("capture", lambda: fresh(bank, u8[1], first_tri, False, False, False,
+                                                 MAX_MEM)),
+                      ("replay", lambda: graphed16.run_video(frames[:3], tri))):
+        if what == "capture":
+            bank = fresh(bank, u8[0], first_tri, True, False, False, MAX_MEM).bank
+        try:
+            with lockstep_check(torch.bfloat16):
+                run()
+            refused[what] = False
+        except RuntimeError as e:
+            refused[what] = str(e)
+    out["lockstep_refused"] = refused
+    print(f"  under a lockstep check: {refused}")
+    assert all(refused.values()), "a graphed read ran under a lockstep check"
+    del fresh, eager16, graphed16
+    torch.cuda.empty_cache()
+
+    # the port's bench, every mode, on shared bf16 models
+    models = serving_models("cuda", torch.bfloat16)
+    lines = {}
+    for name, env, argv in BENCH_MODES:
+        with environ(BENCH_FRAMES="60", **env):
+            line = lines[name] = bench.main(argv, models=models)
+        print(f"  bench {name}: {json.dumps(line)}")
+        assert line["value"] > 0 and line["device"] == torch.cuda.get_device_name(0)
+    out["bench"] = lines
+    out["seconds"] = time.perf_counter() - t10
+    print(f"  phase 10 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def make_video(n, seed=0):
     """Smooth seeded frames (a coarse random grid, bilinearly upsampled,
     new per frame) and the bench's nested-box first trimap."""
@@ -987,8 +1175,8 @@ def main() -> int:
     stm_sd, fba_sd = stm.state_dict(), fba.state_dict()
     frames, tri = make_video(N_FRAMES)
     proto = EvalProtocol(memory_max_num=MAX_MEM, memory_skip_frame=SKIP, dtype="fp32")
-    ev = StreamingEvaluator(stm_sd, fba_sd, proto)
-    ev_plain = StreamingEvaluator(stm_sd, fba_sd, proto, memory_impl="plain")
+    ev = StreamingEvaluator(stm_sd, fba_sd, proto, graphs=False)
+    ev_plain = StreamingEvaluator(stm_sd, fba_sd, proto, memory_impl="plain", graphs=False)
     torch.cuda.synchronize()
     ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     with lockstep_check(torch.float32) as read_errs:
@@ -1024,13 +1212,14 @@ def main() -> int:
     assert (d1 > 1e-3).mean() <= 0.01, "kernel and plain streams differ at frame 1"
     assert (kt[1].argmax(-1) == pt[1].argmax(-1)).mean() >= 0.99, "frame 1 labels differ"
 
-    print("phase 5: full-width stage-4 stream, bf16, timed")
-    ev16 = StreamingEvaluator(stm_sd, fba_sd, EvalProtocol(
-        memory_max_num=MAX_MEM, memory_skip_frame=SKIP, dtype="bf16"))
-    with lockstep_check(torch.bfloat16) as read_errs16:   # warm-up, both bank branches
-        ev16.run_video(frames[:12], tri)
-    print(f"  warm-up: every bf16 read vs plain on its own inputs: rel err <= "
+    print("phase 5: full-width stage-4 stream, bf16, graphed, timed")
+    proto16 = EvalProtocol(memory_max_num=MAX_MEM, memory_skip_frame=SKIP, dtype="bf16")
+    with lockstep_check(torch.bfloat16) as read_errs16:   # both bank branches, eagerly
+        StreamingEvaluator(stm_sd, fba_sd, proto16, graphs=False).run_video(frames[:12], tri)
+    print(f"  eager warm-up: every bf16 read vs plain on its own inputs: rel err <= "
           f"{max(read_errs16):.3e}")
+    ev16 = StreamingEvaluator(stm_sd, fba_sd, proto16)
+    ev16.run_video(frames, tri)                           # captures the stream's graphs
     torch.cuda.synchronize()
     ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     ba, bt, fps = ev16.run_video(frames, tri)
@@ -1052,8 +1241,8 @@ def main() -> int:
     # the port's drift to JAX's.  Above 0.3, or under 90% agreeing labels,
     # the path is broken, not rounded.  Later frames part as in phase 4.
     assert drift[0] <= 0.3 and agree0 >= 0.9, "bf16 frame 0 drifted from fp32"
-    print(f"fps_512p_joint_s4_bf16: {fps:.3f} frames/s ({N_FRAMES} frames, run_video, "
-          f"wall clock) on {card}")
+    print(f"fps_512p_joint_s4_bf16: {fps:.3f} frames/s ({N_FRAMES} frames, run_video from CUDA "
+          f"graphs, wall clock) on {card}")
     del ev, ev_plain, ev16
     torch.cuda.empty_cache()
 
@@ -1081,8 +1270,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ddp = ddp_phase(torch, ma, card)
 
+    print("phase 10: the serving step from CUDA graphs against the eager step")
+    graphed = graphs_phase(torch, ma, card, stm_sd, fba_sd, frames, tri)
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
-    # the bf16 stream's launches; every timed shape and dtype under
+    # the graphed bf16 stream's launches (replays counted); every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
     # splits in the same launch, in a cluster or through L2 (the Pallas
     # kernel's K/V carry and _finish, :111-126).
@@ -1111,6 +1303,7 @@ def main() -> int:
                             f"bf16 stage 4, {BF16_STEPS} steps": train["bf16_launches"],
                             f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
          "serving_paths": serving,
+         "serving_graphs": graphed,
          "entry_points": entry,
          "data_parallel": ddp,
          "l2_merge_beside_held_sms": held,

@@ -12,6 +12,9 @@ The JAX CLI's flags, names and defaults, and `--device` (default cuda;
 --weights the networks take random weights.  One process on one device.
 Outputs go under the working directory unless --outdir says otherwise
 (./demo_results, or <cfg.system.outdir>/alpha/test/<width>/<model>).
+On CUDA every evaluator replays each frame's step from CUDA graphs
+(models/graphs.py); --eager runs it eagerly, a check mode whose every read
+a lockstep check (tools/kernel_check.py) can see.
 """
 from __future__ import annotations
 
@@ -69,6 +72,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "rounds, where the PNGs truncate)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs on the CPU)")
+    p.add_argument("--eager", action="store_true",
+                   help="check mode: run each frame's step eagerly instead of replaying "
+                        "its CUDA graph, so that a lockstep check of the reads sees every "
+                        "one (the CPU always runs eagerly)")
     return p.parse_args(argv)
 
 
@@ -135,6 +142,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict]:
         raise SystemExit("--streams > 1 is the joint serving path (stages 3/4, not "
                          "--trimap-net)")
 
+    graphs = False if args.eager else None
     trimap_sd, alpha_sd = load_weights(args.weights, stage=(1 if args.trimap_net else args.stage),
                                        arch=args.arch)
     protocol = EvalProtocol(memory_max_num=cfg.test.memory_max_num,
@@ -142,7 +150,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict]:
                             trimap_width=args.trimap, stage=args.stage, arch=args.arch,
                             wire_u8_out=args.wire_u8, scale=cfg.model_scale)
     if args.trimap_net:
-        tev = TrimapEvaluator(trimap_sd, protocol, device=device)
+        tev = TrimapEvaluator(trimap_sd, protocol, device=device, graphs=graphs)
         if args.demo:
             for vid in iter_demo_videos(data_root):
                 frames = vid["frames"][:4] if args.testmode else vid["frames"]
@@ -158,7 +166,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict]:
         return results
 
     evaluator = MultiStreamEvaluator if args.streams > 1 else StreamingEvaluator
-    ev = evaluator(trimap_sd, alpha_sd, protocol, device=device)
+    ev = evaluator(trimap_sd, alpha_sd, protocol, device=device, graphs=graphs)
     max_edge = args.max_edge or (256 if args.testmode else None)
     if not args.demo:
         results = evaluate_vm108(ev, data_root, out_dir=os.path.join(outdir, "pred"),

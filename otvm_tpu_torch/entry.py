@@ -26,31 +26,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import resolve_device, set_fp32_numerics
+from . import resolve_device
 from .config import get_cfg_defaults
 from .kernels import memory_attn as ma
-from .models.otvm import eval_frame_step, init_models, make_eval_bank, make_models
-from .nn.layers import freeze_for_inference
+from .models.otvm import eval_frame_step, make_eval_bank, serving_models
 from .parallel import dist as D
 from .train.trainer import init_train_state, make_train_step
 
 ENTRY_HW, ENTRY_MEMORY = 256, 5
 DRYRUN_HW, DRYRUN_FRAMES = 64, 2
 EVAL_FRAMES, EVAL_MEMORY = 3, 3
-
-
-def _serving_models(device, scale: int = 1, weights=None):
-    """Stage-4 (STM, FBA) for serving on `device`: random weights from seed
-    0, or `weights` (STM and FBA state_dicts)."""
-    if weights is None:
-        stm, fba = init_models(seed=0, stage=4, scale=scale)
-    else:
-        stm, fba = make_models(4, scale)
-        stm.load_state_dict(weights[0], strict=True)
-        fba.load_state_dict(weights[1], strict=True)
-    set_fp32_numerics()
-    serve = lambda m: freeze_for_inference(m.to(device).eval().requires_grad_(False))
-    return serve(stm), serve(fba)
 
 
 def entry(device=None, weights: Optional[Tuple[dict, dict]] = None):
@@ -60,7 +45,7 @@ def entry(device=None, weights: Optional[Tuple[dict, dict]] = None):
     starts from its own, as the JAX function reads its closure's bank).
     weights: (STM, FBA) state_dicts; default random from seed 0."""
     device = resolve_device(device)
-    stm, fba = _serving_models(device, weights=weights)
+    stm, fba = serving_models(device, weights=weights)
     h = w = ENTRY_HW
 
     def fn(frame01, first_trimap3, first_frame, memorize, last_frame):
@@ -139,7 +124,7 @@ def eval_streams(n: int, h: int = DRYRUN_HW, w: int = DRYRUN_HW):
 def _eval_rank(device, backend, scale):
     device = D.init_distributed(device, backend)
     group, rank, n = D.data_group(), D.process_index(), D.process_count()
-    stm, fba = _serving_models(device, scale)
+    stm, fba = serving_models(device, scale=scale)
     frames, tri = eval_streams(n)
     h, w = tri.shape[1:3]
     bank = make_eval_bank(1, h, w, max_memory_num=EVAL_MEMORY, scale=scale, device=device)

@@ -22,10 +22,17 @@ in the JAX package (ROADMAP.md §3).
 Pipelining: a step's outputs start a non-blocking copy into pinned host
 memory as soon as they are enqueued, and are read after the next step is
 enqueued, after their CUDA event.
+
+On CUDA the evaluators serve each frame from CUDA graphs
+(models/graphs.py: one replay a frame, as the JAX evaluators always run
+the jitted step); `graphs=False` keeps the eager step, for comparisons and
+for the lockstep checks, which cannot see replayed reads.  On the CPU the
+eager step is the only one, and asking for graphs there raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -39,6 +46,7 @@ import torch
 from .. import resolve_device, set_fp32_numerics
 from ..config import TRIMAP_WIDTH_KERNELS
 from ..data.trimap import trimap_from_alpha, trimap_from_png
+from ..models.graphs import AlphaGraphs, FrameStepGraphs, TrimapStepGraphs
 from ..models.otvm import (alpha_predict, eval_chunk_step, eval_frame_step, make_eval_bank,
                            make_models, trimap_eval_step)
 from ..models.stm import STM
@@ -112,6 +120,15 @@ def _unpad(x: np.ndarray, pad):
     return x[lh:h - uh if uh else h, lw:w - uw if uw else w]
 
 
+def _use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
+    """An evaluator's `graphs` argument: None serves from CUDA graphs on
+    CUDA; graphs=True off CUDA raises."""
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs on {device}: the eager step is the only one off CUDA "
+                         "(graphs=False)")
+    return device.type == "cuda" if graphs is None else bool(graphs)
+
+
 def _has_running_stats(state: Optional[Mapping[str, torch.Tensor]]) -> bool:
     """An STM state with BN running stats is the frozen-BN trunk; without,
     the GroupNorm one."""
@@ -123,12 +140,31 @@ class _Device:
     outputs copied back without blocking and read one step later."""
 
     device: torch.device
+    step_graphs = None      # the CUDA graphs (models/graphs.py) the step is served from
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
+    def _frame_input(self, frame: np.ndarray, dtype=torch.uint8) -> Optional[torch.Tensor]:
+        """Where a padded frame goes up to: the graphs' static input."""
+        if self.step_graphs is None:
+            return None
+        return self.step_graphs.frame_buffer((1, *frame.shape), dtype)
+
+    def _bank(self, height: int, width: int, max_num: int, dtype, own: bool = False):
+        """A stream's bank: the graphs' static one unless `own` (one bank
+        a stream), or a fresh one on the eager path."""
+        if self.step_graphs is not None and not own:
+            return self.step_graphs.bank(1, height, width, max_num, dtype)
+        return make_eval_bank(1, height, width, max_num, dtype=dtype, scale=self.protocol.scale,
+                              device=self.device)
+
+    def _upload(self, host: np.ndarray, into: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`host` on the device, through pinned memory without blocking;
+        into a given device tensor (a graph's static input) if there is one."""
         t = torch.from_numpy(host)
         if self.device.type != "cuda":
             return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if into is None:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return into.copy_(t.pin_memory(), non_blocking=True)
 
     def _prefetch(self, tensors: Sequence[torch.Tensor]):
         """Start the device-to-host copy of a step's outputs now (floating
@@ -194,12 +230,17 @@ class StreamingEvaluator(_Device):
     Stage 1-2 checkpoints have no trimap network: trimap_state may be None
     or empty.  Runs on CUDA unless `device` says otherwise.
     memory_impl='plain' swaps the memory-read kernel for its plain version
-    (comparisons only)."""
+    (comparisons only).  graphs: serve the step (`eval_frame_step`, or
+    `alpha_predict` at stage 1-2) from CUDA graphs (`step_graphs`,
+    models/graphs.py); by default on CUDA.  graphs=False runs it eagerly
+    (comparisons, lockstep checks); graphs=True on the CPU raises."""
 
     def __init__(self, trimap_state: Optional[Mapping[str, torch.Tensor]],
                  alpha_state: Mapping[str, torch.Tensor], protocol: EvalProtocol,
-                 device=None, memory_impl: Optional[str] = None):
+                 device=None, memory_impl: Optional[str] = None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        graphs = _use_graphs(self.device, graphs)
         self.protocol = protocol
         self.memory_impl = memory_impl
         self.dtype = torch.bfloat16 if protocol.dtype == "bf16" else torch.float32
@@ -215,6 +256,13 @@ class StreamingEvaluator(_Device):
         if protocol.stage > 2:
             stm.load_state_dict(trimap_state, strict=True)
             self.stm = serve(stm)
+        if self.stm is not None:
+            self.step_graphs = FrameStepGraphs(self.stm, self.fba) if graphs else None
+            self._step = self.step_graphs or functools.partial(eval_frame_step, self.stm,
+                                                               self.fba)
+        else:
+            self.step_graphs = AlphaGraphs(self.fba) if graphs else None
+            self._step = self.step_graphs or functools.partial(alpha_predict, self.fba)
 
     def run_video(self, frames01: Sequence[np.ndarray], first_trimap3: np.ndarray,
                   out_dir: Optional[str] = None, filenames: Optional[Sequence[str]] = None,
@@ -241,8 +289,7 @@ class StreamingEvaluator(_Device):
         flags, max_num, _ = p.flags(n, h, w)
 
         f0, t0, pad = _pad_frame(frames01[0], first_trimap3, p.pad_multiple)
-        bank = make_eval_bank(1, f0.shape[0], f0.shape[1], max_num, dtype=self.dtype,
-                              scale=p.scale, device=self.device)
+        bank = self._bank(f0.shape[0], f0.shape[1], max_num, self.dtype)
         first_tri = torch.from_numpy(t0[None]).to(self.device, self.dtype)
         padded = lambda i: f0 if i == 0 else _pad_frame(frames01[i], None, p.pad_multiple)[0]
 
@@ -254,10 +301,10 @@ class StreamingEvaluator(_Device):
             pending = None
             for i in range(n):
                 first, memorize, last = flags[i]
-                frame = self._upload(_wire_u8(padded(i))[None])
-                out = eval_frame_step(self.stm, self.fba, bank, frame, first_tri, first, memorize,
-                                      last, max_memory_num=max_num, wire_u8_out=p.wire_u8_out,
-                                      memory_impl=self.memory_impl)
+                frame = self._upload(_wire_u8(padded(i))[None], self._frame_input(f0))
+                out = self._step(bank, frame, first_tri, first, memorize, last,
+                                 max_memory_num=max_num, wire_u8_out=p.wire_u8_out,
+                                 memory_impl=self.memory_impl)
                 bank = out.bank
                 if pending is not None:
                     self._collect(pending, pad, alphas, trimaps)
@@ -296,7 +343,7 @@ class StreamingEvaluator(_Device):
             first, mem, last = zip(*flags[lo:hi])
             bank, a, t = eval_chunk_step(self.stm, self.fba, bank, chunk, first_tri, first, mem,
                                          last, max_memory_num=max_num,
-                                         memory_impl=self.memory_impl)
+                                         memory_impl=self.memory_impl, graphs=self.step_graphs)
             if pending is not None:
                 self._collect(pending, pad, alphas, trimaps)
             pending = self._prefetch((a[:, 0], t[:, 0]))
@@ -313,8 +360,8 @@ class StreamingEvaluator(_Device):
         pending = None
         for i in range(n):
             f, t, pad = _pad_frame(frames01[i], tris[i], p.pad_multiple)
-            alpha, _ = alpha_predict(self.fba, self._upload(_wire_u8(f)[None]),
-                                     self._upload(t[None].astype(np.float32)).to(self.dtype))
+            alpha, _ = self._step(self._upload(_wire_u8(f)[None], self._frame_input(f)),
+                                  self._upload(t[None].astype(np.float32)).to(self.dtype))
             if pending is not None:
                 alphas.append(_unpad(self._fetch(pending[0])[0][0, ..., 0], pending[1]))
             pending = (self._prefetch((alpha,)), pad)
@@ -338,11 +385,17 @@ class MultiStreamEvaluator(StreamingEvaluator):
     and a stream's outputs are those of `run_video` on its clip alone.
     Clips may differ in length and resolution.
 
-    Two module-level caches are shared by every caller, which is why the
+    Graphed (on CUDA by default), the streams share the step's graphs:
+    each stream's bank is copied into the static bank before its step and
+    back after it, and each step's outputs are copied to the host before
+    the next stream's replay overwrites them.  The graphs keep at most 4
+    buckets (shapes and settings), so a group of more than 4 resolutions
+    captures its graphs again and again.
+
+    Module-level caches are shared by every caller, which is why the
     streams share one CUDA stream: the JFA's CUDA graphs keep one static
     input and output per shape (`nn/edt.py`; streams on separate CUDA
-    streams would race on them), and at most 4 shapes, so a group of more
-    than 4 resolutions captures its graphs again and again; and the memory
+    streams would race on them), and at most 4 shapes; and the memory
     read's L2 workspace is one per CUDA stream (`kernels/memory_attn.py`)."""
 
     def run_videos(self, videos: Sequence[Dict], out_root: Optional[str] = None,
@@ -365,8 +418,7 @@ class MultiStreamEvaluator(StreamingEvaluator):
             f0, t0, pad = _pad_frame(frames[0], v["first_trimap"], p.pad_multiple)
             sessions.append(dict(
                 frames=frames, flags=flags, max_num=max_num, pad=pad, f0=f0,
-                bank=make_eval_bank(1, f0.shape[0], f0.shape[1], max_num, dtype=self.dtype,
-                                    scale=p.scale, device=self.device),
+                bank=self._bank(f0.shape[0], f0.shape[1], max_num, self.dtype, own=True),
                 first_tri=torch.from_numpy(t0[None]).to(self.device, self.dtype),
                 alphas=[], trimaps=[], pending=None))
 
@@ -379,10 +431,10 @@ class MultiStreamEvaluator(StreamingEvaluator):
                 f = s["f0"] if step == 0 else _pad_frame(s["frames"][step], None,
                                                          p.pad_multiple)[0]
                 first, memorize, last = s["flags"][step]
-                out = eval_frame_step(self.stm, self.fba, s["bank"],
-                                      self._upload(_wire_u8(f)[None]), s["first_tri"], first,
-                                      memorize, last, max_memory_num=s["max_num"],
-                                      wire_u8_out=p.wire_u8_out, memory_impl=self.memory_impl)
+                out = self._step(s["bank"], self._upload(_wire_u8(f)[None], self._frame_input(f)),
+                                 s["first_tri"], first, memorize, last,
+                                 max_memory_num=s["max_num"], wire_u8_out=p.wire_u8_out,
+                                 memory_impl=self.memory_impl)
                 s["bank"] = out.bank
                 # the previous step's copy landed during the other streams' steps
                 if s["pending"] is not None:
@@ -407,17 +459,21 @@ class TrimapEvaluator(_Device):
     -1) through `trimap_eval_step`.  Frames go up as fp32 in [0, 1] and the
     bank is fp32, as in the JAX package (protocol.dtype is not read).
     stm_state without BN running stats selects the GroupNorm trunk.  Runs on
-    CUDA unless `device` says otherwise."""
+    CUDA unless `device` says otherwise, each frame's step from CUDA graphs
+    unless graphs=False (StreamingEvaluator's argument)."""
 
     def __init__(self, stm_state: Mapping[str, torch.Tensor], protocol: EvalProtocol,
-                 device=None):
+                 device=None, graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        graphs = _use_graphs(self.device, graphs)
         self.protocol = protocol
         set_fp32_numerics()
         self.stm_norm = "frozen_bn" if _has_running_stats(stm_state) else "gn"
         stm = STM(hdim=-1, scale=protocol.scale, norm=self.stm_norm)
         stm.load_state_dict(stm_state, strict=True)
         self.stm = freeze_for_inference(stm.to(self.device).eval().requires_grad_(False))
+        self.step_graphs = TrimapStepGraphs(self.stm) if graphs else None
+        self._step = self.step_graphs or functools.partial(trimap_eval_step, self.stm)
 
     def run_video(self, frames01: Sequence[np.ndarray], first_trimap3: np.ndarray,
                   out_dir: Optional[str] = None, filenames: Optional[Sequence[str]] = None
@@ -430,8 +486,7 @@ class TrimapEvaluator(_Device):
         h, w = frames01[0].shape[:2]
         flags, max_num, _ = p.flags(n, h, w)
         f0, t0, pad = _pad_frame(frames01[0], first_trimap3, p.pad_multiple)
-        bank = make_eval_bank(1, f0.shape[0], f0.shape[1], max_num, scale=p.scale,
-                              device=self.device)
+        bank = self._bank(f0.shape[0], f0.shape[1], max_num, torch.float32)
         first_tri = torch.from_numpy(t0[None]).to(self.device)
         trimaps = []
         t_start = time.perf_counter()
@@ -439,9 +494,9 @@ class TrimapEvaluator(_Device):
         for i in range(n):
             f = f0 if i == 0 else _pad_frame(frames01[i], None, p.pad_multiple)[0]
             first, memorize, _ = flags[i]
-            bank, pred = trimap_eval_step(self.stm, bank,
-                                          self._upload(f[None].astype(np.float32)), first_tri,
-                                          first, memorize, max_memory_num=max_num)
+            frame = self._upload(f[None].astype(np.float32), self._frame_input(f, torch.float32))
+            bank, pred = self._step(bank, frame, first_tri, first, memorize,
+                                    max_memory_num=max_num)
             if pending is not None:
                 trimaps.append(_unpad(self._fetch(pending)[0][0], pad))
             pending = self._prefetch((pred,))

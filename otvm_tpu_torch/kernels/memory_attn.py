@@ -25,11 +25,17 @@ falls back.  Where an input requires grad (training), it goes through
 counts memory-read kernel launches and `cluster_launches` those of them
 that were split over clusters (and nothing else), `l2_merge_launches`
 those split and merged through L2, so a run can show that
-its main path went through them.  `memory_read_tf32_plain` emulates the
+its main path went through them.  A read captured in a CUDA graph launches
+nothing at its capture: it is recorded (`record_launches`), and each replay
+counts what its capture recorded (`count_launches`).  Nothing lazy happens
+inside a capture: the library, the card's cluster table and the L2
+workspace are made by an eager read on the capture stream first, and a
+capture that would make one raises.  `memory_read_tf32_plain` emulates the
 fp32 kernel's tensor-core arithmetic on any device.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,7 +45,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -70,6 +76,11 @@ L2_MERGE_TILES = {torch.bfloat16: 2, torch.float32: 1}
 launches = 0            # memory-read kernel launches since the last reset
 cluster_launches = 0    # of them, split launches merged in a cluster
 l2_merge_launches = 0   # of them, split launches merged through L2
+# Checks that hold every read to the plain read on the host while they are
+# active (tools/kernel_check.lockstep_check): a graph replay, whose reads
+# the host never sees, must refuse to run under one.
+host_checks = 0
+_recorded: Optional[List[Tuple[int, int]]] = None   # reads of the capture in progress
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""          # nvcc's output (registers, shared memory, spills)
 library_path: Optional[Path] = None
@@ -117,6 +128,7 @@ def build() -> ctypes.CDLL:
     global _lib, build_log, library_path
     if _lib is not None:
         return _lib
+    _not_capturing("building the kernel library")
     so, build_log = compile_library(_SRC)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -338,8 +350,22 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
-@functools.lru_cache(maxsize=None)
+def _not_capturing(what: str) -> None:
+    """Raises inside a CUDA-graph capture: `what` is set-up that an eager
+    read on the capture stream makes before the capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} inside a CUDA-graph capture: run the read once eagerly on "
+                           "the capture stream before capturing it")
+
+
+_tables: Dict[Tuple[int, torch.dtype, int, int], Dict[int, int]] = {}
+
+
 def _cluster_table(device_index: int, dtype: torch.dtype, ck: int, cvt: int) -> Dict[int, int]:
+    key = (device_index, dtype, ck, cvt)
+    if key in _tables:
+        return _tables[key]
+    _not_capturing("the cluster occupancy query")
     lib = build()
     table = {}
     with torch.cuda.device(device_index):
@@ -349,6 +375,7 @@ def _cluster_table(device_index: int, dtype: torch.dtype, ck: int, cvt: int) -> 
                                                      blocks, ctypes.byref(count)),
                    "the cluster occupancy query")
             table[blocks] = count.value
+    _tables[key] = table
     return table
 
 
@@ -362,6 +389,9 @@ def max_active_clusters(dtype: torch.dtype, ck: int, cv: int) -> Dict[int, int]:
 
 
 _workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# Workspaces outgrown on their stream.  A CUDA graph holds the addresses of
+# the workspace its reads were captured with, so none is ever freed.
+_outgrown: List[torch.Tensor] = []
 
 
 def _workspace(device: torch.device, floats: int, counters: int
@@ -369,15 +399,50 @@ def _workspace(device: torch.device, floats: int, counters: int
     """The workspace of the L2 merge, for `device` and its current stream
     (launches on one stream run in turn): fp32 partials and the tiles'
     barrier counters, zeroed once (each launch leaves them fit for the
-    next).  Made on first use and grown, never per call."""
+    next).  Made on first use and grown, never per call, and never inside
+    a CUDA-graph capture.  A graph's replays use the workspace of the
+    stream it was captured on, wherever they run: an eager read on that
+    stream must not overlap a replay (models/graphs.py orders them)."""
     key = (device.index, torch.cuda.current_stream().cuda_stream)
     part, bars = _workspaces.get(key, (None, None))
-    if part is None or part.numel() < floats:
+    grow_part = part is None or part.numel() < floats
+    grow_bars = bars is None or bars.numel() < counters
+    if grow_part or grow_bars:
+        _not_capturing("making the L2 merge's workspace")
+        _outgrown.extend(x for x in (part, bars) if x is not None)
+    if grow_part:
         part = torch.empty(floats, dtype=torch.float32, device=device)
-    if bars is None or bars.numel() < counters:
+    if grow_bars:
         bars = torch.zeros(counters, dtype=torch.int32, device=device)
     _workspaces[key] = (part, bars)
     return part, bars
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Around a CUDA-graph capture: the reads captured inside launch
+    nothing now, so they are not counted but recorded, in the list this
+    yields ((cluster merge, L2 merge) per read, as 0 or 1); each replay of
+    the graph passes that list to `count_launches`.  A read captured
+    outside this context raises, as its replays would go uncounted."""
+    global _recorded
+    if _recorded is not None:
+        raise RuntimeError("record_launches does not nest")
+    _recorded = reads = []
+    try:
+        yield reads
+    finally:
+        _recorded = None
+
+
+def count_launches(reads: Iterable[Tuple[int, int]]) -> None:
+    """Counts reads launched on the card: one by the wrapper's eager
+    launch, or those a graph's capture recorded, at each replay."""
+    global launches, cluster_launches, l2_merge_launches
+    for cluster, l2 in reads:
+        launches += 1
+        cluster_launches += cluster
+        l2_merge_launches += l2
 
 
 def _on_own_card(fn):
@@ -408,9 +473,9 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     `launch_geometry` says so; `_splits` and `_cluster` override its split
     count and cluster size, for the card tests and the split benchmark.
     Its output has no gradient: with grad enabled, inputs that require grad
-    raise (`memory_read` takes them through `MemoryRead`).  Raises on what
-    it does not take; never falls back."""
-    global launches, cluster_launches, l2_merge_launches
+    raise (`memory_read` takes them through `MemoryRead`).  Inside a CUDA-
+    graph capture the launch is recorded (`record_launches`), not counted.
+    Raises on what it does not take; never falls back."""
     if not (q_k.is_cuda and m_k.is_cuda and m_v.is_cuda):
         raise ValueError("memory_read_cuda needs CUDA tensors")
     if torch.is_grad_enabled() and (q_k.requires_grad or m_k.requires_grad
@@ -445,6 +510,10 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
         mask = slot_mask    # one byte a slot, 0 or 1, as the kernel reads it
     else:
         mask = slot_mask.to(device=q_k.device, dtype=torch.uint8).contiguous()
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing and _recorded is None:
+        raise RuntimeError("memory_read_cuda captured in a CUDA graph outside record_launches(): "
+                           "its replays would launch reads that no count sees")
     lib = build()
     read = lib.otvm_memory_read_bf16 if q_k.dtype == torch.bfloat16 else lib.otvm_memory_read_f32
     table = _cluster_table(q_k.device.index, q_k.dtype, ck, value_tile(cv))
@@ -458,11 +527,11 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
     _check(read(q_k.data_ptr(), m_k.data_ptr(), m_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 b, hw, t, ck, cv, n_split, blocks, part, bars, _stream(q_k)),
            "memory_read kernel launch")
-    launches += 1
-    if blocks > 1:
-        cluster_launches += 1
-    elif n_split > 1:
-        l2_merge_launches += 1
+    kind = (int(blocks > 1), int(blocks == 1 < n_split))
+    if capturing:
+        _recorded.append(kind)
+    else:
+        count_launches([kind])
     return out
 
 

@@ -21,9 +21,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.utils.checkpoint
 
-from .. import resolve_device
+from .. import resolve_device, set_fp32_numerics
 from ..nn.edt import trimap_clicks
-from ..nn.layers import init_flax_style
+from ..nn.layers import freeze_for_inference, init_flax_style
 from ..train import losses as L
 from ..train.losses import argmax_small
 from .fba import FBA
@@ -63,6 +63,23 @@ def init_models(seed: int = 0, stage: int = 4, scale: int = 1, stm_norm: str = "
     init_flax_style(stm, g)
     init_flax_style(fba, g)
     return stm, fba
+
+
+def serving_models(device, dtype: torch.dtype = torch.float32, scale: int = 1,
+                   weights: Optional[Tuple[Dict, Dict]] = None) -> Tuple[STM, FBA]:
+    """Stage-4 (STM, FBA) served on `device` in `dtype` (frozen for
+    inference, no gradients): random weights from seed 0, or `weights`
+    (STM and FBA state_dicts).  fp32 turns TF32 off (set_fp32_numerics)."""
+    if weights is None:
+        stm, fba = init_models(seed=0, stage=4, scale=scale)
+    else:
+        stm, fba = make_models(4, scale)
+        stm.load_state_dict(weights[0], strict=True)
+        fba.load_state_dict(weights[1], strict=True)
+    if dtype == torch.float32:
+        set_fp32_numerics()
+    serve = lambda m: freeze_for_inference(m.to(device, dtype).eval().requires_grad_(False))
+    return serve(stm), serve(fba)
 
 
 class EvalOutput(NamedTuple):
@@ -119,20 +136,23 @@ def eval_chunk_step(stm: STM, fba: FBA, bank: MemoryBank, frames01: torch.Tensor
                     first_trimap3: torch.Tensor, first_flags: Sequence[bool],
                     memorize_flags: Sequence[bool], last_flags: Sequence[bool],
                     max_memory_num: int = 5, exact_edt: bool = False,
-                    memory_impl: Optional[str] = None
+                    memory_impl: Optional[str] = None, graphs=None
                     ) -> Tuple[MemoryBank, torch.Tensor, torch.Tensor]:
     """T frames of `eval_frame_step` in one call, with per-frame flags:
     the per-frame protocol, frame for frame (JAX's lax.scan over the same
     body).  frames01 [T, B, H, W, 3], uint8 or in [0, 1].  Returns (bank,
     alphas [T, B, H, W, 1], trimaps [T, B, H, W, 3]); as in JAX, no
-    wire_u8_out on this path."""
+    wire_u8_out on this path.  graphs: a `models.graphs.FrameStepGraphs`
+    of (stm, fba), whose graphs then serve the frames (each frame's
+    outputs are copied out before the next replay overwrites them)."""
+    step = functools.partial(eval_frame_step, stm, fba) if graphs is None else graphs
     alphas, trimaps = [], []
     for frame, first, mem, last in zip(frames01, first_flags, memorize_flags, last_flags):
-        out = eval_frame_step(stm, fba, bank, frame, first_trimap3, first, mem, last,
-                              max_memory_num, memory_impl=memory_impl, exact_edt=exact_edt)
+        out = step(bank, frame, first_trimap3, first, mem, last, max_memory_num,
+                   memory_impl=memory_impl, exact_edt=exact_edt)
         bank = out.bank
-        alphas.append(out.alpha)
-        trimaps.append(out.trimap)
+        alphas.append(out.alpha if graphs is None else out.alpha.clone())
+        trimaps.append(out.trimap if graphs is None else out.trimap.clone())
     return bank, torch.stack(alphas), torch.stack(trimaps)
 
 

@@ -19,7 +19,9 @@ Distances are sums of squares of integers below 2^12, exact in fp32.
 
 That is ~540 small ops for a 512x512 pair of maps, and eager mode spends
 host time on each.  On a CUDA card the ops are captured once per input
-shape into a CUDA graph and replayed: one launch from the host.
+shape into a CUDA graph and replayed: one launch from the host.  Inside
+another capture (the serving step's, models/graphs.py) they run inline
+and become part of that graph: no nested capture, no graph of their own.
 
 `edt_sq_exact` is JAX's exact separable transform, bit for bit: a 1-D
 distance along each row, then the column pass min over y' of
@@ -52,7 +54,7 @@ _MAX_GRAPHS = 4         # each holds its maps: ~400 MB at 1088x1920
 def edt_sq_jfa(seeds: torch.Tensor) -> torch.Tensor:
     """Squared distance to the nearest True pixel.  seeds [N, H, W] bool ->
     [N, H, W] fp32; 1e12 everywhere for a map without seeds."""
-    if not seeds.is_cuda:
+    if not seeds.is_cuda or torch.cuda.is_current_stream_capturing():
         return _jfa(seeds)
     key = (seeds.device, *seeds.shape)
     if key not in _graphs:
@@ -113,7 +115,7 @@ def edt_sq_exact(seeds: torch.Tensor, block: Optional[int] = None) -> torch.Tens
     nxt = torch.where(seeds, xs, w).flip(-1).cummin(dim=-1).values.flip(-1)
     fwd = torch.where(last >= 0, xs - last, _ROW_FAR + 1 + xs)
     bwd = torch.where(nxt < w, nxt - xs, _ROW_FAR + w - xs)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)     # no host copy: capturable
     g = torch.minimum(fwd, bwd).float()
     g2 = torch.minimum(g * g, big)                                  # [N, H', W]
     ys = torch.arange(h, dtype=torch.float32, device=dev)

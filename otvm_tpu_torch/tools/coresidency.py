@@ -121,15 +121,16 @@ def graph_child() -> dict:
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph, stream=stream):
+        with ma.record_launches() as reads, torch.cuda.graph(graph, stream=stream):
             out = _forced(ma, q, k, v, mask)
     except RuntimeError as e:
         return dict(captured=False, error=str(e).splitlines()[0])
     before = ma.launches
     graph.replay()
+    ma.count_launches(reads)
     torch.cuda.synchronize()
     return dict(captured=True, replay_bit_identical=bool(torch.equal(out, eager)),
-                launches_counted_by_replay=ma.launches - before)
+                recorded=reads, launches_counted_by_replay=ma.launches - before)
 
 
 def run_child(root: Path, mode: str, hold_lib: Path = None, timeout: float = 120.0) -> dict:

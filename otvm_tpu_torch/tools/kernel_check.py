@@ -58,13 +58,21 @@ def lockstep_check(dtype: torch.dtype):
     """While active, every launch of the read kernel (memory_read_cuda) is
     also computed by the plain version on the same inputs and held to
     READ_TOL[dtype]; yields the list of norm-relative errors per read.  The
-    plain calls launch no kernel."""
+    plain calls launch no kernel.  The host compares each read as it
+    returns, which no CUDA graph can do: a read captured while the check
+    is active raises, and so does a graph replay (models/graphs.py), so
+    no read goes unchecked; run a graphed path with graphs=False to check
+    it."""
     from ..kernels import memory_attn as ma
 
     launch, errs = ma.memory_read_cuda, []
     tol = READ_TOL[dtype]
 
     def checked(q, k, v, mask):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("lockstep_check holds each read to the plain read on the host, "
+                               "which a CUDA-graph capture cannot: run the path eagerly "
+                               "(graphs=False, the eval CLI's --eager) to check it")
         out = launch(q, k, v, mask)
         want = ma.memory_read_plain(q, k, v, mask)
         errs.append(rel_err(out, want))
@@ -73,10 +81,12 @@ def lockstep_check(dtype: torch.dtype):
         return out
 
     ma.memory_read_cuda = checked
+    ma.host_checks += 1
     try:
         yield errs
     finally:
         ma.memory_read_cuda = launch
+        ma.host_checks -= 1
 
 
 @contextlib.contextmanager

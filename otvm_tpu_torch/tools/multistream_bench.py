@@ -7,8 +7,9 @@ card, the port's scripts/multistream_bench.py.
 The stage-4 model at full width with random weights from seed 0; each
 stream cycles 4 seeded random frames (every frame still goes up to the
 card as uint8: wire-inclusive, as serving is) with the nested-box first
-trimap, uint8 outputs (wire_u8_out).  A warm-up over 2-frame clips first
-(kernel build, the JFA's CUDA graphs).  Prints one JSON line: the
+trimap, uint8 outputs (wire_u8_out).  A warm-up over clips of the same
+length first (kernel build; on CUDA every graph the timed run replays,
+models/graphs.py).  Prints one JSON line: the
 aggregate frames/s over the wall clock of run_videos, per stream, and the
 device it ran on.
 """
@@ -57,7 +58,7 @@ def main(argv=None):
     ev = MultiStreamEvaluator(stm.state_dict(), fba.state_dict(),
                               EvalProtocol(dtype=args.dtype, wire_u8_out=True), device=device)
     t0 = time.perf_counter()
-    ev.run_videos([make_video(99, 2, h, w) for _ in range(args.streams)])
+    ev.run_videos([make_video(99, args.frames, h, w) for _ in range(args.streams)])
     warmup_s = time.perf_counter() - t0
     results, fps = ev.run_videos([make_video(s, args.frames, h, w) for s in range(args.streams)])
     assert all(len(alphas) == args.frames for alphas, _ in results)

@@ -3,18 +3,23 @@
     python -m otvm_tpu_torch.tools.profile_stream [--dtype bf16] [--frames 20]
         [--size 512] [--serving ROUNDS] [--out build/profile_stream.json]
 
-Two views of the full-width stream (random weights from a seed, a bank of
-at most 5, memorize every 10th frame):
+Views of the full-width stream (random weights from a seed, a bank of at
+most 5, memorize every 10th frame):
   * stage times: each step of eval_frame_step run alone on steady-state
-    inputs (5 valid slots), median of CUDA-event times around each call.
-    A stage whose host enqueue is slower than its device work shows its
-    enqueue time here;
-  * a torch.profiler trace of run_video: device time by kernel, launches
-    per frame, the device's busy share of the wall clock, and the host's
-    busiest ops.
+    inputs (5 valid slots), median of CUDA-event times around each call,
+    and the whole step replayed from its CUDA graph.  A stage whose host
+    enqueue is slower than its device work shows its enqueue time here;
+  * run_video eager (graphs=False) and graphed (models/graphs.py), each
+    after a warm-up over the same frames (every graph captured): frames/s,
+    the host's time in the step call a frame (median; where the device
+    is the slower, the launch queue fills and this includes its wait),
+    peak memory, and a torch.profiler trace: device time by kernel, device
+    ops per frame, the device's busy share of the wall clock, and the
+    host's busiest ops.
 --serving R adds the ways to serve three clips (30, 17 and 30 frames):
 run_video on each in turn, frame by frame; the same with chunk 8; and
-MultiStreamEvaluator.run_videos on all three, round-robin.  Frames/s on
+MultiStreamEvaluator.run_videos on all three, round-robin, each graphed
+(the evaluators' default on CUDA).  Frames/s on
 the wall clock in R rounds of alternating turns (serial, multi, chunk 8,
 chunk 8, multi, serial), then one trace of each.
 Needs a CUDA card; it does not run on the CPU.
@@ -32,6 +37,7 @@ import torch
 
 from ..eval.runner import EvalProtocol, MultiStreamEvaluator, StreamingEvaluator
 from ..kernels.memory_attn import memory_read
+from ..models.graphs import FrameStepGraphs
 from ..models.memory import update_bank
 from ..models.otvm import eval_frame_step, init_models, make_eval_bank, make_trimap_features
 from ..models.stm import normalize_image
@@ -57,12 +63,15 @@ def stage_times(ev: StreamingEvaluator, size: int, reps: int):
     frame = torch.rand(1, size, size, 3, generator=gen, device="cuda").to(dt)
     tri = torch.softmax(torch.randn(1, size, size, 3, generator=gen, device="cuda"), -1).to(dt)
     bank = make_eval_bank(1, size, size, 5, dtype=dt)
+    graphs = FrameStepGraphs(stm, fba)
+    graphed = graphs.bank(1, size, size, 5, dt)
     with torch.no_grad():
         k, v = stm.memorize(frame, tri[..., 1], tri[..., 2],
                             alpha=tri[..., 0], hidden=torch.zeros(1, size, size, 16,
                                                                   dtype=dt, device="cuda"))
         for i in range(5):
             bank = update_bank(bank, k, v, i == 0, True, 5)
+            graphed = update_bank(graphed, k, v, i == 0, True, 5)
         feats8, _ = make_trimap_features(tri)
         x11 = torch.cat([normalize_image(frame), feats8], -1)
         _, hid, rout7, _ = fba(x11, frame, feats8[..., -2:])
@@ -78,6 +87,8 @@ def stage_times(ev: StreamingEvaluator, size: int, reps: int):
                                                  alpha=rout7[..., 0], hidden=hid),
             "eval_frame_step (steady state, no memorize)": lambda: eval_frame_step(
                 stm, fba, bank, frame, tri, False, False, True, max_memory_num=5),
+            "eval_frame_step replayed from its CUDA graph (the same)": lambda: graphs(
+                graphed, frame, tri, False, False, True, max_memory_num=5),
         }
         return {name: _median_ms(fn, reps) for name, fn in stages.items()}
 
@@ -157,6 +168,37 @@ def serving(stm_sd, fba_sd, dtype: str, clips, tri, rounds: int, top: int):
             "trace": {name: trace(run, n, top) for name, run in runs.items()}}
 
 
+def host_step_ms(ev: StreamingEvaluator, frames, tri) -> float:
+    """Median host time of the evaluator's step call over a run_video,
+    the first frame left out."""
+    step, times = ev._step, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    ev._step = timed
+    try:
+        ev.run_video(frames, tri)
+    finally:
+        ev._step = step
+    return 1e3 * float(np.median(times[1:]))
+
+
+def stream_view(ev: StreamingEvaluator, frames, tri, top: int):
+    """frames/s, host ms a step, peak memory and a trace of run_video,
+    after a warm-up over the same frames."""
+    ev.run_video(frames, tri)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, fps = ev.run_video(frames, tri)
+    return {"fps": fps, "host_step_ms": host_step_ms(ev, frames, tri),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "trace": trace(lambda: ev.run_video(frames, tri), len(frames), top)}
+
+
 def random_clip(n: int, size: int, seed: int):
     rng = np.random.RandomState(seed)
     return [rng.rand(size, size, 3).astype(np.float32) for _ in range(n)]
@@ -189,26 +231,25 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     stm, fba = init_models(seed=0, stage=4)
-    ev = StreamingEvaluator(stm.state_dict(), fba.state_dict(),
-                            EvalProtocol(memory_max_num=5, memory_skip_frame=10,
-                                         dtype=args.dtype))
     frames = random_clip(args.frames, args.size, 0)
     tri = np.zeros((args.size, args.size, 3), np.float32)
     s = args.size
     tri[..., 0] = 1.0
     tri[s // 4:-s // 4, s // 4:-s // 4] = (0, 1, 0)
     tri[3 * s // 8:-3 * s // 8, 3 * s // 8:-3 * s // 8] = (0, 0, 1)
-    ev.run_video(frames[:12], tri)                    # warm-up
-
-    _, _, fps = ev.run_video(frames, tri)
-    result = {"card": card, "dtype": args.dtype, "size": args.size, "frames": args.frames,
-              "fps": fps, "stage_ms": stage_times(ev, args.size, args.reps),
-              "trace": trace(lambda: ev.run_video(frames, tri), len(frames), args.top)}
-    print(f"card: {card}; {args.dtype} {args.size}x{args.size}, {args.frames} frames: "
-          f"{fps:.2f} frames/s")
+    result = {"card": card, "dtype": args.dtype, "size": args.size, "frames": args.frames}
+    for name, graphs in (("eager", False), ("graphs", True)):
+        ev = StreamingEvaluator(stm.state_dict(), fba.state_dict(),
+                                EvalProtocol(memory_max_num=5, memory_skip_frame=10,
+                                             dtype=args.dtype), graphs=graphs)
+        view = result[name] = stream_view(ev, frames, tri, args.top)
+        print(f"card: {card}; {args.dtype} {args.size}x{args.size}, {args.frames} frames, "
+              f"{name}: {view['fps']:.2f} frames/s, host {view['host_step_ms']:.3f} ms a step, "
+              f"peak memory {view['peak_gb']:.2f} GB")
+        _print_trace(view["trace"])
+    result["stage_ms"] = stage_times(ev, args.size, args.reps)
     for name, ms in result["stage_ms"].items():
         print(f"  {ms:9.3f} ms  {name}")
-    _print_trace(result["trace"])
     if args.serving:
         del ev
         clips = [random_clip(n, args.size, seed) for n, seed in ((30, 0), (17, 1), (30, 0))]

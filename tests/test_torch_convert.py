@@ -88,7 +88,8 @@ def test_load_pth_reads_a_joint_checkpoint(tmp_path):
     torch.testing.assert_close(stm2.KV_Q_r4.Key.weight, stm.KV_Q_r4.Key.weight)
 
 
-_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "otvm_tpu")
+_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "otvm_tpu",
+           "bench")                     # the JAX package's bench.py at the root
 
 
 def _imports(path):
@@ -106,7 +107,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"cli/eval.py", "cli/train.py", "cli/train_s1_trimap.py", "data/augs.py",
             "data/datasets.py", "data/trimap.py", "data/loader.py", "eval/metrics.py",
             "utils/viz.py", "parallel/dist.py", "entry.py", "tools/ddp_check.py",
-            "tools/multistream_bench.py"} <= names
+            "tools/multistream_bench.py", "models/graphs.py", "bench.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
