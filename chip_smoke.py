@@ -101,9 +101,30 @@ Phases, in order; any failure exits non-zero:
      captured or replayed under a lockstep check refused; and every mode of
      the port's bench (python -m otvm_tpu_torch.bench, BENCH_FRAMES 60):
      default, BENCH_WIRE_OUT=1, BENCH_BATCH=4, BENCH_CHUNK=8 and default with
-     --eager, each line printed.
-Phases 4-8 check every read of their fp32 paths in lockstep, so those paths
-run eagerly (graphs=False, the eval CLI's --eager); the others, phase 5's
+     --eager, each line printed;
+ 11. the compiled train steps (otvm_tpu_torch/train/graphs.py: each step
+     after a key's first replayed from a CUDA graph, the trainer's default
+     on one card) against the eager steps, through
+     otvm_tpu_torch/tools/train_graphs_check.py, at config.py's crop,
+     batch and clip length (320x320, B 4, S 3), random weights from a
+     seed, seeded_batches: fp32 stage 4 over 11 steps with a stair
+     schedule over 10 (RAdam's hold at steps 1-5, its updates from 6, the
+     learning rate's drop at 10), bf16 stage 4 over 4, trimap-s1 over 4;
+     under torch's deterministic algorithms (nn/ops.py's atomic-free
+     forms), each graphed step beside two eager steps from the same state:
+     the eager steps equal each other bit for bit, and the graphed one
+     equals them (loss, gradients, change to the parameters, RAdam's
+     moments), no parameter moved in RAdam's hold; a control with the
+     decay alone frozen at a capture before the stair drop must fail that
+     check at steps 10-11 and nowhere else; one capture a run, 2 reads a
+     step counted at every replay and merged as launch_geometry says; then
+     the graphed and the eager step each alone from the init in the
+     default (atomic) mode, their losses of steps 1-6 (RAdam's hold: the
+     init's parameters) equal bit for bit: ms a step, host ms in the step
+     call, captures and their seconds, peak memory allocated and
+     reserved.
+Phases 4-9 check every read of their fp32 paths in lockstep, so those paths
+run eagerly (graphs=False, the CLIs' --eager); the others, phase 5's
 timed bf16 stream (the main path) among them, are graphed.  The line before the last is a JSON
 object with the kernel's numbers (launch counts include graph replays);
 the last line is {"ok": true, "device": {...}}.
@@ -119,6 +140,10 @@ import sys
 import time
 
 import numpy as np
+
+# phase 11 runs torch's deterministic algorithms, which ask this of cuBLAS
+# before its first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 H = W = 512
 N_FRAMES = 30
@@ -414,7 +439,7 @@ def train_phase(torch, ma, card):
         (TRAIN_B, TRAIN_S, (TRAIN_HW, TRAIN_HW)), "config.py's stage-4 crop changed"
     batches = seeded_batches(cfg, TRAIN_STEPS + TRAIN_TIMED + 1, seed=1)
     state = T.init_train_state(cfg, seed=0)
-    step = T.make_train_step(cfg)
+    step = T.make_train_step(cfg, graphs=False)     # lockstep-checked: eager
     params = state.optimizer.param_groups[0]["params"]
     start = [p.detach().clone() for p in params]
     reads_per_step = TRAIN_S - 1
@@ -450,7 +475,7 @@ def train_phase(torch, ma, card):
     torch.cuda.reset_peak_memory_stats()
     ev_ms, wall_ms = [], []
     for i in range(TRAIN_TIMED):
-        state, metrics, e, w = timed_step(step, state, batches[TRAIN_STEPS + i])
+        state, metrics, e, w, _ = timed_step(step, state, batches[TRAIN_STEPS + i])
         assert np.isfinite(metrics["loss"].item())
         ev_ms.append(e)
         wall_ms.append(w)
@@ -471,7 +496,7 @@ def train_phase(torch, ma, card):
 
     # bf16: the same state; bf16 copies of the weights feed the networks
     cfg.train.bf16 = True
-    step16 = T.make_train_step(cfg)
+    step16 = T.make_train_step(cfg, graphs=False)
     with lockstep_check(torch.bfloat16) as f16, \
             lockstep_grad_check(torch.bfloat16) as b16:          # warm-up, checked
         state, metrics = step16(state, batches[0])
@@ -481,7 +506,7 @@ def train_phase(torch, ma, card):
     torch.cuda.reset_peak_memory_stats()
     ev16, losses16 = [], []
     for i in range(BF16_STEPS):
-        state, metrics, e, _ = timed_step(step16, state, batches[1 + i])
+        state, metrics, e, _, _ = timed_step(step16, state, batches[1 + i])
         ev16.append(e)
         losses16.append(metrics["loss"].item())
     out.update(bf16_launches=ma.launches, bf16_merges=merges(ma),
@@ -501,12 +526,12 @@ def train_phase(torch, ma, card):
     # stage-1 trimap training: the STM alone, frames composited on the card
     cfg1 = config.get_cfg_defaults()
     state1 = T.init_train_state(cfg1, seed=2)
-    step1 = T.make_trimap_s1_train_step(cfg1)
+    step1 = T.make_trimap_s1_train_step(cfg1, graphs=False)
     split1 = merges_per_step(ma, torch.bfloat16 if cfg1.train.bf16 else torch.float32)
     ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
     losses1, ms1 = [], []
     for i in range(TRIMAP_STEPS):
-        state1, metrics, e, _ = timed_step(step1, state1, batches[i])
+        state1, metrics, e, _, _ = timed_step(step1, state1, batches[i])
         assert metrics["pred_lab"].shape == (TRAIN_B, TRAIN_S, TRAIN_HW, TRAIN_HW)
         losses1.append(metrics["loss"].item())
         ms1.append(e)
@@ -762,7 +787,9 @@ def entry_points_phase(torch, ma, card):
               "state: " + ", ".join(f"{n} threads {r:.3f} batches/s ({k} batches, pass {p:.1f} s)"
                                     for n, r, k, p in rates))
 
-        common = ["--testmode", "--data-root", "data", "--repeats", "1", "--workers", "2"]
+        # every read in lockstep: the eager step (--eager)
+        common = ["--testmode", "--data-root", "data", "--repeats", "1", "--workers", "2",
+                  "--eager"]
         chain = [("train_s1_trimap", cli_s1.main, common + ["--max-iters", "2"], 2),
                  ("train stage 2", cli_train.main,
                   common + ["--stage", "2", "--init-trimap", "weights/s1_OTVM_trimap"], 2),
@@ -1085,6 +1112,79 @@ def graphs_phase(torch, ma, card, stm_sd, fba_sd, frames, tri):
     return out
 
 
+# phase 11: one fp32 run crosses RAdam's hold (steps 1-5), its first
+# updates (6-9) and a stair drop at step 10 of 10; bf16 and trimap-s1 short
+TRAIN_GRAPH_STEPS = {"fp32": 11, "bf16": 4, "trimap": 4}
+
+
+def train_graphs_phase(torch, ma, card):
+    """Phase 11: the train steps from CUDA graphs against the eager steps,
+    at full width (tools/train_graphs_check.py)."""
+    from otvm_tpu_torch import config
+    from otvm_tpu_torch.tools import train_graphs_check as C
+    from otvm_tpu_torch.tools.profile_train import seeded_batches
+
+    t11 = time.perf_counter()
+    cfg = config.get_cfg_defaults()
+    cfg.train.stage = 4
+    batches = seeded_batches(cfg, max(TRAIN_GRAPH_STEPS.values()), seed=1)
+    stair = C.Case("fp32 stage 4, stair over 10", TRAIN_GRAPH_STEPS["fp32"], stair_iters=10)
+    cases = [(stair, cfg, 4, 0),
+             (C.Case("bf16 stage 4", TRAIN_GRAPH_STEPS["bf16"], bf16=True), cfg, 4, 0),
+             (C.Case("trimap-s1", TRAIN_GRAPH_STEPS["trimap"], stage=1, trimap=True),
+              config.get_cfg_defaults(), 1, 2)]
+    out, nets = {}, {}
+    for case, base, stage, seed in cases:
+        if stage not in nets:               # one stage's networks on the card at a time
+            nets.clear()
+            torch.cuda.empty_cache()
+            base.train.stage = stage
+            nets[stage] = C.Nets(base, seed=seed, device="cuda")
+        result = C.check_case(case, base, nets[stage], batches)
+        print(C.summary(case, result))
+        run_cfg = case.config(base)
+        reads, merges = case.reads_per_step(run_cfg), case.merges_per_step(run_cfg)
+        lock = result["lockstep"]
+        out[case.name] = {
+            **{k: {key: result[k][key] for key in (
+                "step_ms", "host_step_ms", "launches", "merges", "peak_gb", "peak_reserved_gb",
+                "captures", "capture_s", "losses") if key in result[k]}
+               for k in ("eager", "graphed")},
+            "lockstep": {key: lock[key] for key in (
+                "launches", "merges", "graphed_launches", "graphed_merges", "captures",
+                "steps")},
+            "failures": result["failures"]}
+        assert not result["failures"], f"{case.name}: graphed parts from eager: " \
+            f"{result['failures']}"
+        assert result["graphed"]["captures"] == lock["captures"] == 1, \
+            f"{case.name}: not one capture"
+        for k, launches, merged, n in (
+                ("eager", result["eager"]["launches"], result["eager"]["merges"], case.steps),
+                ("graphed", result["graphed"]["launches"], result["graphed"]["merges"],
+                 case.steps),
+                ("lockstep's graphed steps", lock["graphed_launches"], lock["graphed_merges"],
+                 case.steps),
+                ("lockstep", lock["launches"], lock["merges"], case.steps * (C.EAGER_RUNS + 1))):
+            assert launches == reads * n and merged == tuple(x * n for x in merges), \
+                f"{case.name} {k}: {launches} reads {merged}, want {reads} and {merges} a step"
+        if case is stair:
+            # the small-error control: the decay alone frozen at a capture
+            # before the stair drop
+            frozen = C.lockstep(case, base, nets[stage], batches, eager_first=7,
+                                optimizer=C.FrozenDecayRAdam)
+            failures = C.verify(frozen)
+            print(f"    frozen-decay control (captured at step 9, the drop at 10): {failures}")
+            out[case.name]["control_failures"] = failures
+            assert [f"delta of step {i}:" in " ".join(failures)
+                    for i in range(1, case.steps + 1)] == [False] * 9 + [True] * (case.steps - 9), \
+                "the frozen-decay control was not rejected at the drop alone"
+    nets.clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t11
+    print(f"  phase 11 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def make_video(n, seed=0):
     """Smooth seeded frames (a coarse random grid, bilinearly upsampled,
     new per frame) and the bench's nested-box first trimap."""
@@ -1273,6 +1373,9 @@ def main() -> int:
     print("phase 10: the serving step from CUDA graphs against the eager step")
     graphed = graphs_phase(torch, ma, card, stm_sd, fba_sd, frames, tri)
 
+    print("phase 11: the train steps from CUDA graphs against the eager steps")
+    train_graphed = train_graphs_phase(torch, ma, card)
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the graphed bf16 stream's launches (replays counted); every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -1304,6 +1407,7 @@ def main() -> int:
                             f"trimap s1, {TRIMAP_STEPS} steps": train["trimap_launches"]},
          "serving_paths": serving,
          "serving_graphs": graphed,
+         "train_graphs": train_graphed,
          "entry_points": entry,
          "data_parallel": ddp,
          "l2_merge_beside_held_sms": held,

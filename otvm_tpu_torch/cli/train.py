@@ -2,7 +2,7 @@
 
     python -m otvm_tpu_torch.cli.train --stage {1,2,3,4} [--data-root PATH] [--testmode]
         [--init CKPT.pth|FILE] [--init-trimap CKPT.pth|FILE] [--resume FILE]
-        [--epochs N] [--batch-size B] [--device cuda|cpu]
+        [--epochs N] [--batch-size B] [--device cuda|cpu] [--eager]
 
 Stages (train.py:86-168 of the reference):
   1  the alpha net alone on DIM (GT trimaps every frame)
@@ -11,6 +11,9 @@ Stages (train.py:86-168 of the reference):
   4  both, on VideoMatting108, with the max_skip curriculum
 
 The JAX CLI's flags, names and defaults, and `--device` (default cuda).
+On one CUDA card each step after the first is one CUDA-graph replay
+(train/graphs.py), as JAX's is one jitted dispatch; `--eager` keeps the
+eager step, and so do several ranks and the CPU (the log says which).
 Checkpoints (utils/checkpoint.save_train_state files) go to
 <cfg.system.outdir>/<model>/ckpt_e<N> and weights/<model> under the working
 directory, every `--save-every` epochs and at the last; the run's logs and
@@ -43,6 +46,7 @@ from ..convert import load_pth
 from ..data.datasets import DIMTrain, VM108Train, vm108_max_skip_for_epoch
 from ..data.loader import Loader, encode_wire, epoch_indices
 from ..parallel import dist as D
+from ..train.graphs import refusal
 from ..train.trainer import init_train_state, make_train_step, make_viz_forward
 from ..utils.checkpoint import restore_params_only, restore_train_state, save_train_state
 from ..utils.logging import AverageMeter, StepTimer, create_logger
@@ -84,7 +88,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "interruption-proof chains)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs on the CPU)")
+    p.add_argument("--eager", action="store_true",
+                   help="the eager train step, not its CUDA-graph replay (the default on "
+                        "one CUDA card; several ranks always take the eager step)")
     return p.parse_args(argv)
+
+
+def step_mode(args: argparse.Namespace, state) -> str:
+    """The log's word on the train step: replayed from a CUDA graph, or
+    eager and why."""
+    if args.eager:
+        return "eager (--eager)"
+    why = refusal(state)
+    return f"eager ({why})" if why else "one CUDA-graph replay a step, after an eager first step"
 
 
 def per_rank_batch(cfg: Config) -> int:
@@ -193,7 +209,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             restore_params_only(args.init_trimap, state, nets=("stm",))
     start_epoch = resume(args.resume, state, iters_per_epoch, cfg.train.total_epochs, logger)
 
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, graphs=False if args.eager else None)
+    logger.info(f"train step: {step_mode(args, state)}")
     viz_forward = None
     loss_meter, timer, losses = AverageMeter(), StepTimer(), []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs

@@ -4,8 +4,10 @@ trimaps over DIM clips, optionally from STM_weights.pth.
 
     python -m otvm_tpu_torch.cli.train_s1_trimap [--data-root PATH] [--testmode]
         [--init STM_weights.pth] [--resume FILE] [--max-iters N] [--device cuda|cpu]
+        [--eager]
 
-The JAX CLI's flags, names and defaults, and `--device` (default cuda).
+The JAX CLI's flags, names and defaults, `--device` (default cuda) and
+`--eager` (the eager train step; cli/train.py's note).
 Each epoch saves weights/s1_OTVM_trimap under the working directory; the
 log line carries the reference's in-training IoU (eval/metrics.py
 reference_iou) of the propagated frames (1 and on) of the logged batch.
@@ -28,7 +30,7 @@ from ..parallel import dist as D
 from ..train.trainer import init_train_state, make_trimap_s1_train_step
 from ..utils.checkpoint import save_train_state
 from ..utils.logging import AverageMeter
-from .train import apply_overrides, per_rank_batch, rank_logger, resume
+from .train import apply_overrides, per_rank_batch, rank_logger, resume, step_mode
 
 MODEL_NAME = "s1_OTVM_trimap"
 
@@ -59,6 +61,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="hard cap on iterations per epoch (LR probes)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs on the CPU)")
+    p.add_argument("--eager", action="store_true",
+                   help="the eager train step, not its CUDA-graph replay (the default on "
+                        "one CUDA card; several ranks always take the eager step)")
     return p.parse_args(argv)
 
 
@@ -86,7 +91,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         state.stm.load_state_dict(load_pth(args.init)[0], strict=True)
     start_epoch = resume(args.resume, state, iters_per_epoch, cfg.train.total_epochs, logger)
 
-    train_step = make_trimap_s1_train_step(cfg)
+    train_step = make_trimap_s1_train_step(cfg, graphs=False if args.eager else None)
+    logger.info(f"train step: {step_mode(args, state)}")
     meter, iou_meter = AverageMeter(), AverageMeter()
     losses, ious = [], []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs

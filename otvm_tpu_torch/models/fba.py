@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from ..nn.layers import Conv, GroupNorm32, WSConv
-from ..nn.ops import resize_bilinear, upsample_x2
+from ..nn.ops import AdaptiveAvgPool, resize_bilinear, upsample_x2
 from ..nn.resnet_bn import ResNet50DilatedBN
 from ..nn.resnet_gn_ws import BasicBlockGN, ResNet50DilatedGNWS
 
@@ -59,9 +59,9 @@ class FBADecoder(nn.Module):
     def __init__(self, feat_dim: int = FEAT_DIM, l1_ch: int = 256, c1_ch: int = 64,
                  dec_dim: int = DEC_DIM):
         super().__init__()
-        # nn.AdaptiveAvgPool2d is ops.adaptive_avg_pool (torch's window rule)
+        # nn.AdaptiveAvgPool2d as ops.adaptive_avg_pool (torch's window rule)
         self.ppm = nn.ModuleList([
-            nn.Sequential(nn.AdaptiveAvgPool2d(s), WSConv(feat_dim, dec_dim, 1, 1, 0),
+            nn.Sequential(AdaptiveAvgPool(s), WSConv(feat_dim, dec_dim, 1, 1, 0),
                           GroupNorm32(dec_dim), nn.LeakyReLU(0.01))
             for s in POOL_SCALES])
         self.conv_up1 = nn.Sequential(

@@ -85,6 +85,54 @@ def max_graphs(max_memory_num: int) -> int:
     return 3 * max(max_memory_num, 1)
 
 
+class GraphCache:
+    """What the caches of CUDA graphs (these and train/graphs.py's) share:
+    a capture stream of their own, made for a device on first use; warm-ups
+    on it, ordered after the caller's stream's work and before its later
+    work; captures on it into a given pool, with the reads they launch
+    recorded (memory_attn.record_launches) and counted at each replay
+    (count_launches); a replay under a lockstep check refused."""
+
+    def __init__(self):
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.captures = 0                   # graphs captured
+        self.capture_s = 0.0                # seconds in the captures (warm-ups excluded)
+
+    def _stream_on(self, device: torch.device) -> torch.cuda.Stream:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        return self.stream
+
+    def _warm_up(self, fn: Callable):
+        """fn() eagerly on the capture stream."""
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        current.wait_stream(self.stream)
+        return out
+
+    def _capture(self, pool: tuple, fn: Callable):
+        """fn() captured on the capture stream into `pool` -> (the graph,
+        fn's outputs in the pool, the reads it launches)."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with ma.record_launches() as reads, \
+                torch.cuda.graph(graph, pool=pool, stream=self.stream):
+            out = fn()
+        self.capture_s += time.perf_counter() - t0
+        self.captures += 1
+        return graph, out, reads
+
+    @staticmethod
+    def _replay(graph: torch.cuda.CUDAGraph, reads: List[Tuple[int, int]]) -> None:
+        if ma.host_checks:
+            raise RuntimeError("a lockstep check is active, and it cannot see the reads of a "
+                               "graph replay: run with graphs=False to check")
+        graph.replay()
+        ma.count_launches(reads)
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: torch.cuda.CUDAGraph
@@ -101,20 +149,18 @@ class _Bucket:
     graphs: Dict[tuple, _Graph] = dataclasses.field(default_factory=dict)
 
 
-class _StepGraphs:
+class _StepGraphs(GraphCache):
     """The cache the steps share the workings of: buckets of graphs,
-    static inputs and banks, the capture stream.  See the module's
-    docstring."""
+    static inputs and banks.  See the module's docstring."""
 
     def __init__(self, module: torch.nn.Module, scale: int):
+        super().__init__()
         self.device = next(module.parameters()).device
         if self.device.type != "cuda":
             raise ValueError("CUDA graphs serve models on a CUDA card; on the CPU the eager "
                              "steps are the only ones")
         self.scale = scale
-        self.stream = torch.cuda.Stream(self.device)
-        self.captures = 0                   # graphs captured
-        self.capture_s = 0.0                # seconds in the captures (warm-ups excluded)
+        self._stream_on(self.device)
         self._buckets: Dict[tuple, _Bucket] = collections.OrderedDict()
         self._inputs: Dict[tuple, torch.Tensor] = {}
         self._banks: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -194,11 +240,7 @@ class _StepGraphs:
                 outputs, count = self._warm_up_and_capture(bucket, key, statics, static_bank,
                                                            body)
             else:
-                if ma.host_checks:
-                    raise RuntimeError("a lockstep check is active, and it cannot see the reads "
-                                       "of a graph replay: serve with graphs=False to check")
-                entry.graph.replay()
-                ma.count_launches(entry.reads)
+                self._replay(entry.graph, entry.reads)
                 outputs, count = entry.outputs, entry.count
             if not own:
                 bank.keys.copy_(keys)
@@ -209,19 +251,10 @@ class _StepGraphs:
                              static_bank: Optional[MemoryBank], body: Body):
         """The key's first step: eagerly on the capture stream (its results
         are this step's), then captured into the bucket's pool."""
-        current = torch.cuda.current_stream()
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            outputs, after = body(statics, static_bank)
-        current.wait_stream(self.stream)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        outputs, after = self._warm_up(lambda: body(statics, static_bank))
         # `static_bank` still holds the count the step starts from
-        with ma.record_launches() as reads, \
-                torch.cuda.graph(graph, pool=bucket.pool, stream=self.stream):
-            captured, _ = body(statics, static_bank)
-        self.capture_s += time.perf_counter() - t0
-        self.captures += 1
+        graph, (captured, _), reads = self._capture(
+            bucket.pool, lambda: body(statics, static_bank))
         count = None if after is None else after.count
         bucket.graphs[key] = _Graph(graph, captured, count, reads)
         return outputs, count

@@ -228,8 +228,12 @@ def _in_dtype(module: torch.nn.Module, dtype: Optional[torch.dtype]):
 
 
 def _checkpointed(fn):
-    """fn recomputed in the backward pass instead of keeping its activations."""
-    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
+    """fn recomputed in the backward pass instead of keeping its activations.
+    The training forward draws no random numbers, so the RNG state is not
+    stashed for the re-run (a CUDA-graph capture of the step refuses that
+    stash: train/graphs.py)."""
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def joint_train_forward(stm: STM, fba: FBA, batch: Dict[str, torch.Tensor], stage: int,

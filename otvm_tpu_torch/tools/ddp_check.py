@@ -182,8 +182,9 @@ class _Steps:
         if kind not in self.made:
             cfg = dataclasses.replace(self.cfg, train=dataclasses.replace(
                 self.cfg.train, bf16=kind == "bf16"))
-            self.made[kind] = (T.make_trimap_s1_train_step(cfg) if self.trimap
-                               else T.make_train_step(cfg, remat=kind == "remat"))
+            # eager: the lockstep checks and the gradient all-reduce read the host
+            self.made[kind] = (T.make_trimap_s1_train_step(cfg, graphs=False) if self.trimap
+                               else T.make_train_step(cfg, remat=kind == "remat", graphs=False))
         return self.made[kind]
 
 

@@ -94,7 +94,9 @@ def lockstep_grad_check(dtype: torch.dtype):
     """While active, every backward of the read (the autograd Function's
     memory_read_vjp_plain) is also computed by autograd through the plain
     read on the same inputs and held to GRAD_TOL[dtype]; yields the list of
-    the largest of the three gradients' norm-relative errors per backward."""
+    the largest of the three gradients' norm-relative errors per backward.
+    A captured train step cannot be checked so: its step raises while this
+    is active (train/graphs.py), as under lockstep_check."""
     from ..kernels import memory_attn as ma
 
     vjp, errs = ma.memory_read_vjp_plain, []
@@ -108,10 +110,12 @@ def lockstep_grad_check(dtype: torch.dtype):
         return grads
 
     ma.memory_read_vjp_plain = checked
+    ma.host_checks += 1
     try:
         yield errs
     finally:
         ma.memory_read_vjp_plain = vjp
+        ma.host_checks -= 1
 
 
 def device_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:

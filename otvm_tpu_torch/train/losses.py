@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..nn.ops import divide_pad_amounts
+from ..nn.ops import divide_pad_amounts, reflect_pad
 from ..parallel.dist import batch_means
 
 EPSILON = 1.001e-5
@@ -108,7 +108,7 @@ def _conv_gauss(img, scale=1.0):
     """Depthwise 5x5 gaussian with reflect pad 2 (loss_func.py:123-126), NCHW."""
     c = img.shape[1]
     k = (_pyr_kernel(img.dtype, img.device) * scale).expand(c, 1, 5, 5)
-    return F.conv2d(F.pad(img, (2, 2, 2, 2), mode="reflect"), k, groups=c)
+    return F.conv2d(reflect_pad(img, (2, 2, 2, 2)), k, groups=c)
 
 
 def _zero_interleave(x):
@@ -152,7 +152,7 @@ def _gauss_sep(x, scale=1.0):
     reassociation ([1,4,6,4,1]/16 per axis; the outer product is the /256
     kernel exactly)."""
     for pad, axis in (((0, 0, 2, 2), 2), ((2, 2, 0, 0), 3)):
-        xp = F.pad(x, pad, mode="reflect")
+        xp = reflect_pad(x, pad)
         n = x.shape[axis]
         x = sum(t * xp.narrow(axis, i, n) for i, t in enumerate(_GAUSS_TAPS))
     return x * scale if scale != 1.0 else x

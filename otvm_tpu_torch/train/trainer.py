@@ -16,7 +16,9 @@ A train step runs on the device of the state's modules: the batch (numpy
 or tensors, float or encode_wire's uint8) is copied there and decoded
 there.  State is updated in place; the step returns it for symmetry with
 the JAX package, and its metrics as device tensors (reading them waits for
-the device).
+the device).  On a CUDA card the step replays a CUDA graph, as JAX's is one
+jitted executable (train/graphs.py: the key's first step eager, then one
+replay a step); `graphs=False` keeps the eager step.
 
 Data parallelism (the JAX package's data mesh): a state made with a
 process `group` (parallel/dist.py) is one rank's copy; every rank starts
@@ -42,6 +44,7 @@ from ..models.otvm import init_models, joint_train_forward, trimap_train_forward
 from ..models.stm import STM
 from ..parallel import dist as D
 from . import losses as L
+from .graphs import TrainStepGraphs, refusal
 from .optim import SCHEDULES, RAdam
 
 
@@ -102,7 +105,7 @@ def _compute_dtype(cfg: Config) -> Optional[torch.dtype]:
 
 
 def _on_device(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
-    return decode_wire({k: torch.as_tensor(v).to(device) for k, v in batch.items()})
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def _apply(state: TrainState, loss: torch.Tensor) -> None:
@@ -114,24 +117,47 @@ def _apply(state: TrainState, loss: torch.Tensor) -> None:
     state.step += 1
 
 
-def make_train_step(cfg: Config, remat: bool = False) -> Callable:
+def _train_step(forward: Callable, static: tuple, graphs: Optional[bool]) -> Callable:
+    """The train step of `forward` (state, the wire batch's tensors on the
+    device) -> (loss, metrics): from CUDA graphs (train/graphs.py) where
+    `graphs` is True, or None and the state is on CUDA without a process
+    group; else eagerly.  graphs=True where graphs cannot serve raises."""
+    compiled = None if graphs is False else TrainStepGraphs(forward, static)
+
+    def train_step(state: TrainState, batch: Mapping):
+        if compiled is not None:
+            why = refusal(state)
+            if why is None:
+                return state, compiled(state, batch)
+            if graphs:
+                raise ValueError(f"graphs=True: {why}")
+        loss, metrics = forward(state, _on_device(batch, state.device))
+        _apply(state, loss)
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    train_step.graphs = compiled
+    return train_step
+
+
+def make_train_step(cfg: Config, remat: bool = False, graphs: Optional[bool] = None) -> Callable:
     """train_step(state, batch) -> (state, metrics): decode the batch on the
     device, the stage's joint forward and loss, backward, one RAdam step.
     metrics: loss, L_alpha_comp, L_lap, L_grad, L_tri (0-d tensors).
     remat: recompute the network calls and frame losses in the backward
-    pass (joint_train_forward's remat, the JAX package's OTVM_REMAT=1)."""
+    pass (joint_train_forward's remat, the JAX package's OTVM_REMAT=1).
+    graphs: None replays the step from a CUDA graph on a CUDA card without
+    a process group (train/graphs.py; the eager step elsewhere), False
+    keeps the eager step (the lockstep checks need it), True insists on
+    graphs.  train_step.graphs is the TrainStepGraphs (None when False)."""
     stage, cdt = cfg.train.stage, _compute_dtype(cfg)
 
-    def train_step(state: TrainState, batch: Mapping):
-        batch = _on_device(batch, state.device)
-        loss, aux = joint_train_forward(state.stm, state.fba, batch, stage, compute_dtype=cdt,
-                                        remat=remat, group=state.group)
-        _apply(state, loss)
-        metrics = dict(loss=loss, **{k: aux[k] for k in ("L_alpha_comp", "L_lap", "L_grad",
-                                                         "L_tri")})
-        return state, {k: v.detach() for k, v in metrics.items()}
+    def forward(state: TrainState, batch: Dict[str, torch.Tensor]):
+        loss, aux = joint_train_forward(state.stm, state.fba, decode_wire(batch), stage,
+                                        compute_dtype=cdt, remat=remat, group=state.group)
+        return loss, dict(loss=loss, **{k: aux[k] for k in ("L_alpha_comp", "L_lap", "L_grad",
+                                                            "L_tri")})
 
-    return train_step
+    return _train_step(forward, ("joint", stage, cdt, remat), graphs)
 
 
 def make_viz_forward(cfg: Config) -> Callable:
@@ -143,31 +169,31 @@ def make_viz_forward(cfg: Config) -> Callable:
 
     @torch.no_grad()
     def viz_forward(state: TrainState, batch: Mapping):
-        _, aux = joint_train_forward(state.stm, state.fba, _on_device(batch, state.device), stage)
+        _, aux = joint_train_forward(state.stm, state.fba,
+                                     decode_wire(_on_device(batch, state.device)), stage)
         return {k: aux[k].float().cpu().numpy() for k in ("alphas", "comps")}
 
     return viz_forward
 
 
-def make_trimap_s1_train_step(cfg: Config) -> Callable:
+def make_trimap_s1_train_step(cfg: Config, graphs: Optional[bool] = None) -> Callable:
     """train_s1_trimap.py's step: the STM alone, trained on the CE of its
     propagated trimaps.  Without `img` in the batch, the frames are
     composited on the device (models/trimap/model.py:57-60).  metrics: loss,
     and the uint8 argmax labels of the predicted and GT trimaps (pred_lab,
-    gt_lab [B, S, H, W]) for the in-training IoU."""
+    gt_lab [B, S, H, W]) for the in-training IoU.  graphs: as
+    make_train_step's."""
     cdt = _compute_dtype(cfg)
 
-    def train_step(state: TrainState, batch: Mapping):
-        batch = _on_device(batch, state.device)
+    def forward(state: TrainState, batch: Dict[str, torch.Tensor]):
+        batch = decode_wire(batch)
         if "img" not in batch:
             batch["img"] = batch["fg"] * batch["alpha"] + batch["bg"] * (1.0 - batch["alpha"])
         loss, aux = trimap_train_forward(state.stm, batch, compute_dtype=cdt)
-        _apply(state, loss)
-        return state, dict(loss=loss.detach(),
-                           pred_lab=L.argmax_small(aux["pred"].detach()).to(torch.uint8),
-                           gt_lab=L.argmax_small(batch["tri"]).to(torch.uint8))
+        return loss, dict(loss=loss, pred_lab=L.argmax_small(aux["pred"].detach()).to(torch.uint8),
+                          gt_lab=L.argmax_small(batch["tri"]).to(torch.uint8))
 
-    return train_step
+    return _train_step(forward, ("trimap_s1", cdt), graphs)
 
 
 def run_epoch(state: TrainState, train_step: Callable, batches: Iterable[Mapping]):

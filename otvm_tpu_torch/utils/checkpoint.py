@@ -44,7 +44,9 @@ def _load(path: str) -> dict:
 def restore_train_state(path: str, template):
     """Loads a save_train_state file strictly into `template` (a TrainState
     of the same stage and model, e.g. a fresh init_train_state) and
-    returns it, at the saved step."""
+    returns it, at the saved step.  Everything loads into the template's
+    own tensors (modules and RAdam copy in place), so a train step's CUDA
+    graph of that state stays valid and replays from the loaded state."""
     ckpt = _load(path)
     template.stm.load_state_dict(ckpt["stm"], strict=True)
     template.fba.load_state_dict(ckpt["fba"], strict=True)

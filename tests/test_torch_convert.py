@@ -107,7 +107,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"cli/eval.py", "cli/train.py", "cli/train_s1_trimap.py", "data/augs.py",
             "data/datasets.py", "data/trimap.py", "data/loader.py", "eval/metrics.py",
             "utils/viz.py", "parallel/dist.py", "entry.py", "tools/ddp_check.py",
-            "tools/multistream_bench.py", "models/graphs.py", "bench.py"} <= names
+            "tools/multistream_bench.py", "models/graphs.py", "bench.py", "train/graphs.py",
+            "tools/train_graphs_check.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
