@@ -122,7 +122,22 @@ Phases, in order; any failure exits non-zero:
      default (atomic) mode, their losses of steps 1-6 (RAdam's hold: the
      init's parameters) equal bit for bit: ms a step, host ms in the step
      call, captures and their seconds, peak memory allocated and
-     reserved.
+     reserved;
+ 12. the data-parallel train step from CUDA graphs over NCCL
+     (otvm_tpu_torch/train/graphs.py with a process group: each rank
+     replays one graph a step holding GlobalSum's all-reduces and the
+     bucketed gradient all-reduce), through otvm_tpu_torch/tools/
+     ddp_check.py run_graphed, at full width, 320x320, global batch 4, S 3:
+     2 ranks a card each where the machine has 2 cards, else a one-rank
+     NCCL group (printed which); fp32 stage 4 over 8 steps (RAdam's hold,
+     then its first updates), remat, bf16 and trimap-s1 over 2 each (the
+     second a replay), every
+     graphed step in lockstep with the eager step from the same state under
+     torch's deterministic algorithms, bit for bit (loss, gradients, update,
+     moments), the ranks bit-equal after every step, one capture a run, 2
+     reads a step (4 with remat) counted at every replay; then the fp32
+     step graphed and eager alone: ms a step, host ms, and NCCL's share of
+     a profiled replay.
 Phases 4-9 check every read of their fp32 paths in lockstep, so those paths
 run eagerly (graphs=False, the CLIs' --eager); the others, phase 5's
 timed bf16 stream (the main path) among them, are graphed.  The line before the last is a JSON
@@ -132,6 +147,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1112,6 +1128,9 @@ def graphs_phase(torch, ma, card, stm_sd, fba_sd, frames, tri):
     return out
 
 
+# phase 12: each stage-4 step graphed and eager alone, so many steps (the
+# median of steps 3 on)
+PHASE12_TIMED = 6
 # phase 11: one fp32 run crosses RAdam's hold (steps 1-5), its first
 # updates (6-9) and a stair drop at step 10 of 10; bf16 and trimap-s1 short
 TRAIN_GRAPH_STEPS = {"fp32": 11, "bf16": 4, "trimap": 4}
@@ -1182,6 +1201,54 @@ def train_graphs_phase(torch, ma, card):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t11
     print(f"  phase 11 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
+def ddp_graphs_phase(torch, ma, card):
+    """Phase 12: the data-parallel train step from CUDA graphs over NCCL,
+    at full width (tools/ddp_check.py run_graphed): 2 ranks a card each
+    where the machine has 2 cards, else a one-rank NCCL group on the one
+    card.  A rank that fails, or runs past its time, fails the phase."""
+    from otvm_tpu_torch.tools import ddp_check
+
+    t12 = time.perf_counter()
+    ranks = 2 if torch.cuda.device_count() >= 2 else 1
+    how = (f"{ranks} ranks over NCCL, one card each" if ranks > 1 else
+           "a one-rank NCCL group (world 1: the machine has one card, and NCCL takes one card "
+           "a rank), its collectives captured and replayed")
+    print(f"  {how}; global batch {TRAIN_B} ({TRAIN_B // ranks} a rank), {TRAIN_HW}x{TRAIN_HW}, "
+          f"S {TRAIN_S}")
+    # fp32 over 8 steps (RAdam's hold, then its first updates); remat, bf16
+    # and trimap-s1 over 2: the eager warm-up, then the capture's replay
+    cases = (ddp_check.GRAPHED_CASES[0],
+             *(dataclasses.replace(c, steps=2) for c in ddp_check.GRAPHED_CASES[1:]))
+    results = ddp_check.run_graphed(ranks, cases=cases, timing=PHASE12_TIMED, eager_runs=1,
+                                    timeout=900)
+    print("\n".join("  " + line for line in ddp_check.summary_graphed(results).splitlines()))
+    ddp_check.verify_graphed(results)     # bit for bit, ranks equal, reads at every replay
+    assert all(r["backend"] == "nccl" for r in results)
+    first = ddp_check.GRAPHED_CASES[0].name
+    res = results[0]["cases"][first]
+    g, e, pg = res["graphed"], res["eager"], res["profiled"]["graphed"]
+    out = dict(
+        ranks=ranks, how=how,
+        reads={f"rank {r['rank']}": {name: dict(graphed=c["lockstep"]["graphed_launches"],
+                                                all=c["lockstep"]["launches"],
+                                                merged=c["lockstep"]["graphed_merges"],
+                                                steps=len(c["lockstep"]["steps"]))
+                                     for name, c in r["cases"].items()} for r in results},
+        step_ms=g["step_ms"], eager_step_ms=e["step_ms"], host_step_ms=g["host_step_ms"],
+        eager_host_step_ms=e["host_step_ms"], peak_gb=g["peak_gb"], eager_peak_gb=e["peak_gb"],
+        profiled={k: {key: v[key] for key in ("ms", "device_ms", "nccl_ms", "nccl", "memcpy_ms",
+                                              "all_reduce_host_ms")}
+                  for k, v in res["profiled"].items()},
+        captures={name: c["lockstep"]["captures"] for name, c in results[0]["cases"].items()})
+    print(f"  {first}: graphed {g['step_ms']:.1f} ms a step, eager {e['step_ms']:.1f} ms "
+          f"({e['step_ms'] / g['step_ms']:.2f}x); NCCL's kernels {pg['nccl_ms']:.2f} ms of a "
+          f"profiled replay's {pg['ms']:.1f} ms ({pg['nccl_ms'] / pg['ms']:.2%}; copies "
+          f"{pg['memcpy_ms']:.2f} ms, a one-rank group's all-reduce among them); on {card}")
+    out["seconds"] = time.perf_counter() - t12
+    print(f"  phase 12 took {out['seconds']:.1f} s on {card}")
     return out
 
 
@@ -1376,6 +1443,10 @@ def main() -> int:
     print("phase 11: the train steps from CUDA graphs against the eager steps")
     train_graphed = train_graphs_phase(torch, ma, card)
 
+    print("phase 12: the data-parallel train step from CUDA graphs over NCCL")
+    torch.cuda.empty_cache()
+    ddp_graphed = ddp_graphs_phase(torch, ma, card)
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the graphed bf16 stream's launches (replays counted); every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -1410,6 +1481,7 @@ def main() -> int:
          "train_graphs": train_graphed,
          "entry_points": entry,
          "data_parallel": ddp,
+         "data_parallel_graphs": ddp_graphed,
          "l2_merge_beside_held_sms": held,
          "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)

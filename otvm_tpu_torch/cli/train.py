@@ -11,9 +11,10 @@ Stages (train.py:86-168 of the reference):
   4  both, on VideoMatting108, with the max_skip curriculum
 
 The JAX CLI's flags, names and defaults, and `--device` (default cuda).
-On one CUDA card each step after the first is one CUDA-graph replay
-(train/graphs.py), as JAX's is one jitted dispatch; `--eager` keeps the
-eager step, and so do several ranks and the CPU (the log says which).
+On CUDA each step after the first is one CUDA-graph replay
+(train/graphs.py), as JAX's is one jitted dispatch: on one card, and on
+each rank under torchrun, whose graph holds the rank's NCCL collectives;
+`--eager` keeps the eager step, and so does the CPU (the log says which).
 Checkpoints (utils/checkpoint.save_train_state files) go to
 <cfg.system.outdir>/<model>/ckpt_e<N> and weights/<model> under the working
 directory, every `--save-every` epochs and at the last; the run's logs and
@@ -90,17 +91,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="torch device (default cuda; cpu runs on the CPU)")
     p.add_argument("--eager", action="store_true",
                    help="the eager train step, not its CUDA-graph replay (the default on "
-                        "one CUDA card; several ranks always take the eager step)")
+                        "CUDA, alone or on each NCCL rank under torchrun)")
     return p.parse_args(argv)
 
 
 def step_mode(args: argparse.Namespace, state) -> str:
-    """The log's word on the train step: replayed from a CUDA graph, or
-    eager and why."""
+    """The log's word on the train step: replayed from a CUDA graph (on
+    each of N ranks), or eager and why."""
+    ranks = "" if state.group is None else \
+        f" on each of {D.process_count()} {D.group_backend(state.group)} ranks"
     if args.eager:
-        return "eager (--eager)"
+        return f"eager{ranks} (--eager)"
     why = refusal(state)
-    return f"eager ({why})" if why else "one CUDA-graph replay a step, after an eager first step"
+    return f"eager ({why})" if why else \
+        f"one CUDA-graph replay a step{ranks}, after an eager first step"
 
 
 def per_rank_batch(cfg: Config) -> int:

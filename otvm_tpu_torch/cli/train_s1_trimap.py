@@ -63,7 +63,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="torch device (default cuda; cpu runs on the CPU)")
     p.add_argument("--eager", action="store_true",
                    help="the eager train step, not its CUDA-graph replay (the default on "
-                        "one CUDA card; several ranks always take the eager step)")
+                        "CUDA, alone or on each NCCL rank under torchrun)")
     return p.parse_args(argv)
 
 

@@ -11,7 +11,13 @@ batch and a whole copy of the train state:
     CUDA and gloo on the CPU (or gloo on CUDA tensors, asked for by name);
   * all_reduce_gradients: after the backward pass, every rank's gradients
     averaged in flat buckets, so the optimizer sees the global batch's
-    gradient;
+    gradient.  It is two parts: a plan made on the host (plan_gradients:
+    which parameters any rank holds a gradient for, agreed in one
+    collective, and the buckets) and a device part that reads nothing back
+    (reduce_gradients), which a CUDA graph of the train step holds
+    (train/graphs.py keeps a plan per key: GradientPlans);
+  * check_same_key: every rank about to capture the same step, checked in
+    one collective (graphs whose collectives differ would wait for ever);
   * GlobalSum and batch_means: a mean over the global batch inside the
     loss, for the one term that is not linear in the batch (the exclusion
     loss's ratio of two means, train/losses.py);
@@ -30,9 +36,12 @@ parameter that no rank's loss reaches (the STM at joint stage 1) as the
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import os
 import socket
-from typing import Callable, List, Optional, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,6 +98,11 @@ def backend() -> Optional[str]:
     return dist.get_backend() if dist.is_initialized() else None
 
 
+def group_backend(group) -> str:
+    """The backend of `group` ('nccl', 'gloo')."""
+    return dist.get_backend(group)
+
+
 def data_group():
     """The group of every rank where there are several, else None (one
     process: every reduction is local)."""
@@ -104,7 +118,9 @@ def shutdown() -> None:
 
 class GlobalSum(torch.autograd.Function):
     """x summed over the ranks of `group`.  Backward: the gradient summed
-    over the ranks, since every rank's loss depends on every rank's x."""
+    over the ranks, since every rank's loss depends on every rank's x.
+    Neither pass reads anything back to the host, so a CUDA graph of the
+    train step holds both collectives (over NCCL)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -136,35 +152,113 @@ def batch_means(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tenso
     return [s / float(t.numel() * world) for s, t in zip(sums.unbind(), tensors)]
 
 
+@dataclasses.dataclass(frozen=True)
+class GradientPlan:
+    """How a step's gradients are averaged over the ranks of `group`, made
+    on the host once (`plan_gradients`) and then run on the device alone
+    (`reduce_gradients`), so that a CUDA graph can hold that part."""
+    group: object
+    world: int
+    held: Tuple[bool, ...]                  # per parameter: some rank has its gradient
+    buckets: Tuple[Tuple[int, ...], ...]    # the held parameters' indices, a flat bucket each
+
+
+def plan_gradients(params: Sequence[torch.nn.Parameter], group=None,
+                   bucket_bytes: int = BUCKET_BYTES) -> GradientPlan:
+    """The plan of this step's gradients (their .grad set by the backward
+    pass): which parameters any rank holds a gradient for, agreed in one
+    collective (its result read on the host), and the held ones cut, in
+    order, into buckets of about `bucket_bytes` of one dtype."""
+    params = list(params)
+    held = torch.tensor([float(p.grad is not None) for p in params], device=params[0].device)
+    dist.all_reduce(held, group=group)
+    held = tuple(bool(n) for n in held.tolist())
+    buckets, bucket, size = [], [], 0
+    live = [i for i, h in enumerate(held) if h]
+    for j, i in enumerate(live):
+        bucket.append(i)
+        size += params[i].numel() * params[i].element_size()
+        if (j == len(live) - 1 or size >= bucket_bytes
+                or params[live[j + 1]].dtype != params[i].dtype):
+            buckets.append(tuple(bucket))
+            bucket, size = [], 0
+    return GradientPlan(group, dist.get_world_size(group), held, tuple(buckets))
+
+
+def reduce_gradients(plan: GradientPlan, params: Sequence[torch.nn.Parameter]) -> None:
+    """`plan`'s device part, which reads nothing back to the host: each
+    held parameter's .grad (zeros where this rank has none) becomes the
+    mean over the ranks, a bucket at a time (concatenated, all-reduced,
+    divided by the world size, copied back); a parameter that no rank
+    holds keeps .grad None.  A gradient on this rank that the plan says no
+    rank holds raises: the plan no longer describes the step."""
+    params = list(params)
+    if len(params) != len(plan.held):
+        raise RuntimeError(f"a gradient plan of {len(plan.held)} parameters for {len(params)}")
+    for i, (p, held) in enumerate(zip(params, plan.held)):
+        if held and p.grad is None:
+            p.grad = torch.zeros_like(p)
+        elif not held and p.grad is not None:
+            raise RuntimeError(f"parameter {i} has a gradient that its gradient plan says no "
+                               "rank holds: the step no longer matches the plan made for it")
+    for bucket in plan.buckets:
+        grads = [params[i].grad for i in bucket]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=plan.group)
+        flat /= plan.world
+        for g, piece in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(piece.view_as(g))
+
+
 def all_reduce_gradients(params: Sequence[torch.nn.Parameter], group=None,
                          bucket_bytes: int = BUCKET_BYTES) -> None:
     """Each parameter's .grad becomes the mean over the ranks of `group`, in
-    flat buckets of about `bucket_bytes`.  A gradient that some rank lacks
-    counts there as zero (autograd leaves it None where the loss does not
-    reach the parameter); one that every rank lacks stays None, as in one
-    process (RAdam takes None as a zero gradient)."""
+    flat buckets of about `bucket_bytes`: this step's plan
+    (`plan_gradients`), then its device part (`reduce_gradients`).  A
+    gradient that some rank lacks counts there as zero (autograd leaves it
+    None where the loss does not reach the parameter); one that every rank
+    lacks stays None, as in one process (RAdam takes None as a zero
+    gradient)."""
     params = list(params)
-    if not params:
-        return
-    world = dist.get_world_size(group)
-    held = torch.tensor([float(p.grad is not None) for p in params], device=params[0].device)
-    dist.all_reduce(held, group=group)
-    for p, n in zip(params, held.tolist()):
-        if n and p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params if p.grad is not None]
-    bucket, size = [], 0
-    for i, g in enumerate(grads):
-        bucket.append(g)
-        size += g.numel() * g.element_size()
-        last = i == len(grads) - 1
-        if last or size >= bucket_bytes or grads[i + 1].dtype != g.dtype:
-            flat = torch.cat([x.reshape(-1) for x in bucket])
-            dist.all_reduce(flat, group=group)
-            flat /= world
-            for x, piece in zip(bucket, flat.split([x.numel() for x in bucket])):
-                x.copy_(piece.view_as(x))
-            bucket, size = [], 0
+    if params:
+        reduce_gradients(plan_gradients(params, group, bucket_bytes), params)
+
+
+class GradientPlans:
+    """Gradient plans kept by key: a key's first call makes its plan (one
+    collective, read on the host), every later call runs the kept plan's
+    device part alone, as a CUDA graph of the step replays it."""
+
+    def __init__(self, bucket_bytes: int = BUCKET_BYTES):
+        self.bucket_bytes = bucket_bytes
+        self.plans: Dict[object, GradientPlan] = {}
+
+    def __call__(self, key, params: Sequence[torch.nn.Parameter], group) -> GradientPlan:
+        params = list(params)
+        if key not in self.plans:
+            self.plans[key] = plan_gradients(params, group, self.bucket_bytes)
+        plan = self.plans[key]
+        reduce_gradients(plan, params)
+        return plan
+
+
+def key_digest(key) -> int:
+    """A digest of `key` (its repr) that is the same in every process (not
+    Python's hash, which is salted per process)."""
+    return int.from_bytes(hashlib.blake2b(repr(key).encode(), digest_size=7).digest(), "little")
+
+
+def check_same_key(key, group, device) -> None:
+    """Raises on every rank unless every rank of `group` passes an equal
+    `key` (by key_digest, gathered in one collective): ranks that would
+    capture or replay different steps would wait on each other's
+    collectives for ever."""
+    rows = all_gather_rows(torch.tensor([key_digest(key)], dtype=torch.int64, device=device),
+                           group)[:, 0].tolist()
+    if len(set(rows)) > 1:
+        raise RuntimeError(f"the ranks' train steps differ in their keys (digests by rank "
+                           f"{rows}; this rank's key {key!r}): every rank must take the same "
+                           "step, with the same batch shapes, in the same order")
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
@@ -227,26 +321,37 @@ def _rank_main(rank: int, world: int, port: int, threads: int, queue, fn: Callab
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, *args) -> list:
+def spawn(fn: Callable, world: int, *args, timeout: Optional[float] = None) -> list:
     """Runs fn(*args) as `world` ranks on this host, each in a fresh
     process (spawned: a module-level fn, picklable args) with torchrun's
     variables set (RANK = LOCAL_RANK, WORLD_SIZE, MASTER_ADDR localhost, a
     free MASTER_PORT) and this process's CPU threads shared among them.
     fn joins the group itself (init_distributed).  Returns each rank's
-    return value, by rank; a rank that raises makes this raise."""
+    return value, by rank; a rank that raises makes this raise, and so do
+    ranks still running after `timeout` seconds (None: no limit), which are
+    ended first (a rank waiting on a collective that another rank never
+    issues waits for ever)."""
     import torch.multiprocessing as mp
 
     queue = mp.get_context("spawn").SimpleQueue()
     threads = max(1, torch.get_num_threads() // world)
     context = mp.start_processes(_rank_main, args=(world, _free_port(), threads, queue, fn, args),
                                  nprocs=world, join=False, start_method="spawn")
-    results = {}
+    results, t0 = {}, time.monotonic()
     while True:
         while not queue.empty():
             rank, value = queue.get()
             results[rank] = value
         if context.join(timeout=1.0):
             break
+        if timeout is not None and time.monotonic() - t0 > timeout:
+            for proc in context.processes:
+                if proc.is_alive():
+                    proc.kill()
+            for proc in context.processes:
+                proc.join()
+            raise TimeoutError(f"{world} ranks still running after {timeout:.0f} s (ranks done: "
+                               f"{sorted(results)})")
     while not queue.empty():
         rank, value = queue.get()
         results[rank] = value

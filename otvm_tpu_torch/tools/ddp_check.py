@@ -1,7 +1,7 @@
 """Data-parallel training on N ranks, held to one process on the global batch.
 
     python -m otvm_tpu_torch.tools.ddp_check [--ranks 2] [--backend nccl|gloo]
-        [--device cuda|cpu] [--scale 1] [--out FILE]
+        [--device cuda|cpu] [--scale 1] [--graphed] [--out FILE]
 
 N ranks (parallel/dist.py spawn: one card a rank over NCCL; over gloo,
 asked for by name, ranks may share a card) each take their rows of seeded
@@ -46,6 +46,22 @@ every rank, and each rank counts its read launches.  Timed steps run
 unchecked: CUDA-event ms a step in both runs, the gradient all-reduce's ms
 (host clock around it, the card synchronized before and after), and in one
 profiled step on rank 0 the device time of NCCL's kernels and of copies.
+
+`--graphed` (`run_graphed`, NCCL): the step each rank replays from a CUDA
+graph with its collectives captured (train/graphs.py) against the eager
+step, not against 1 process.  Each rank takes GRAPHED_CASES on its rows
+(fp32 stage 4 over 8 steps, then remat, bf16 and trimap-s1), each graphed
+step in lockstep with the eager step from the same state under torch's
+deterministic algorithms (tools/train_graphs_check.py lockstep: loss,
+gradients, update and moments bit for bit, the ranks bit-equal after every
+step, the reads counted at every replay).  With 2 ranks any order of a sum
+of two rounds alike; with more, NCCL may sum in another order inside a
+graph than eagerly, so the bit-for-bit run pins NCCL's algorithm and
+protocol (PINNED) for both, and an unpinned run is held within the
+tolerances of `bounds` (GRAPHED_TOL) and timed.  At 1 rank it runs in a
+one-rank NCCL group.  Timed on rank 0: ms a step graphed and eager (CUDA
+events), host ms in the step call, and one profiled step of each (NCCL's
+kernels by name; the eager all-reduce's host ms).
 """
 from __future__ import annotations
 
@@ -66,6 +82,7 @@ from ..config import get_cfg_defaults
 from ..kernels import memory_attn as ma
 from ..parallel import dist as D
 from ..train import trainer as T
+from . import train_graphs_check as G
 from .kernel_check import lockstep_check, lockstep_grad_check
 from .profile_train import seeded_batches
 
@@ -199,6 +216,26 @@ def expected_reads(line: Line, kind: str, frames: int, device) -> Tuple[int, Tup
     return reads, ((0, 0) if kind == "timed" else (reads, frames - 1))
 
 
+@contextlib.contextmanager
+def _timed_all_reduce(device, ms: List[float]):
+    """D.all_reduce_gradients timed on the host clock (the card
+    synchronized before and after) while active: ms appended."""
+    run = D.all_reduce_gradients
+
+    def timed(*args, **kwargs):
+        _sync(device)
+        t0 = time.perf_counter()
+        run(*args, **kwargs)
+        _sync(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+
+    D.all_reduce_gradients = timed
+    try:
+        yield
+    finally:
+        D.all_reduce_gradients = run
+
+
 def _run_line(line: Line, cfg, state, batches, rows, device, log: Dict):
     """The line's steps on `state` (rows `rows` of each batch), recording
     in log[line.name] per step: this rank's loss, the ranks' mean loss,
@@ -206,32 +243,20 @@ def _run_line(line: Line, cfg, state, batches, rows, device, log: Dict):
     snapshots.  Returns the state."""
     steps, group = _Steps(cfg, line.trimap), state.group
     ar_ms = []
-    run_all_reduce = D.all_reduce_gradients
-
-    def timed_all_reduce(*args, **kwargs):
-        _sync(device)
-        t0 = time.perf_counter()
-        run_all_reduce(*args, **kwargs)
-        _sync(device)
-        ar_ms.append(1e3 * (time.perf_counter() - t0))
-
     out = dict(step=[], snap={})
     for i, kind in enumerate(line.steps):
         batch = {k: v[rows] for k, v in batches[i].items()}
         checked = device.type == "cuda" and kind != "timed"
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         ma_before = ma.launches
-        D.all_reduce_gradients = timed_all_reduce if kind == "timed" else run_all_reduce
-        try:
-            with (lockstep_check(dt) if checked else contextlib.nullcontext([])) as fwd, \
-                    (lockstep_grad_check(dt) if checked else contextlib.nullcontext([])) as bwd:
-                _sync(device)
-                t0 = time.perf_counter()
-                start, end = _events(device)
-                state, metrics = steps(kind)(state, batch)
-                ms = _elapsed(start, end, t0, device)
-        finally:
-            D.all_reduce_gradients = run_all_reduce
+        with (_timed_all_reduce(device, ar_ms) if kind == "timed" else contextlib.nullcontext()), \
+                (lockstep_check(dt) if checked else contextlib.nullcontext([])) as fwd, \
+                (lockstep_grad_check(dt) if checked else contextlib.nullcontext([])) as bwd:
+            _sync(device)
+            t0 = time.perf_counter()
+            start, end = _events(device)
+            state, metrics = steps(kind)(state, batch)
+            ms = _elapsed(start, end, t0, device)
         loss = metrics["loss"].item()
         mean = D.all_reduce_mean([metrics["loss"]], group)[0].item() if group else loss
         equal = D.ranks_equal([*_params(state), *_moments(state, "exp_avg"),
@@ -269,18 +294,26 @@ def _elapsed(start, end, t0, device) -> float:
     return start.elapsed_time(end)
 
 
-def _profiled_all_reduce(state, step, batch, device) -> Dict[str, float]:
-    """One step under torch.profiler on this rank: device ms of NCCL's
-    kernels and of memory copies (gloo's path through the host)."""
+def _profile_step(state, step, batch, device) -> Dict:
+    """One step under torch.profiler on this rank: its CUDA-event ms, the
+    device ms of its kernels, of NCCL's (in all and by name) and of memory
+    copies (gloo's path through the host, a one-rank NCCL group's
+    all-reduce), and the eager all-reduce's host ms (synchronized)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ar_ms = []
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            _timed_all_reduce(device, ar_ms):
+        start, end = _events(device)
         step(state, batch)
-        _sync(device)
+        ms = _elapsed(start, end, 0.0, device)
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    events = prof.key_averages()
-    return {"nccl_ms": sum(dev(e) for e in events if "nccl" in e.key.lower()) / 1e3,
-            "memcpy_ms": sum(dev(e) for e in events if "memcpy" in e.key.lower()) / 1e3}
+    kernels = [e for e in prof.key_averages() if dev(e) > 0]
+    nccl = {e.key: dev(e) / 1e3 for e in kernels if "nccl" in e.key.lower()}
+    return dict(ms=ms, device_ms=sum(dev(e) for e in kernels) / 1e3,
+                nccl_ms=sum(nccl.values()), nccl=nccl, all_reduce_host_ms=ar_ms,
+                memcpy_ms=sum(dev(e) for e in kernels if "memcpy" in e.key.lower()) / 1e3)
 
 
 def _rank_main(device, backend, lines, scale, size, frames, seed):
@@ -299,7 +332,7 @@ def _rank_main(device, backend, lines, scale, size, frames, seed):
         state = _run_line(line, cfg, state, batches, rows, device, log)
         if "timed" in line.steps and device.type == "cuda":
             step = _Steps(cfg, line.trimap)("timed")
-            prof = _profiled_all_reduce(state, step, {k: v[rows] for k, v in batches[-1].items()},
+            prof = _profile_step(state, step, {k: v[rows] for k, v in batches[-1].items()},
                                         device)
             log[line.name]["profiled"] = prof
         del state
@@ -463,21 +496,209 @@ def summary(results: List[Dict]) -> str:
     return "\n".join(lines)
 
 
+# ---------------------------------------------------------------------------
+# the graphed data-parallel step against the eager one
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 12 and tests/test_torch_ddp_cuda.py: fp32 stage 4
+# across RAdam's hold into its first updates (step 6), then remat, bf16 and
+# trimap-s1 steps; a key's first step is eager, its second captured and
+# replayed, so each short case replays from its second step on
+GRAPHED_CASES = (G.Case("fp32 stage 4", 8), G.Case("fp32 stage 4, remat", 3, remat=True),
+                 G.Case("bf16 stage 4", 3, bf16=True),
+                 G.Case("trimap-s1", 3, stage=1, trimap=True))
+# NCCL's algorithm and protocol pinned in the ranks' environment, for the
+# graphed and the eager run alike: at more than 2 ranks another algorithm
+# (a capture may get another than an eager call, or NVLS on an NVSwitch
+# machine) sums the ranks in another order, another rounding
+PINNED = {"NCCL_ALGO": "Ring", "NCCL_PROTO": "Simple"}
+# a graphed step not bit-equal to the eager one (NCCL unpinned at more
+# than 2 ranks) is held to the eager one within the tolerances of `bounds`
+GRAPHED_TOL = {"loss": LOSS_RTOL, "grad": STATE_TOL, "exp_avg": STATE_TOL,
+               "exp_avg_sq": STATE_TOL, "delta": PARAM_TOL}
+
+
+def _join(device, backend, world: int):
+    """(this rank's device, its group): init_distributed's, or at world 1
+    over NCCL a one-rank group (init_distributed joins none there), whose
+    collectives are still NCCL's, captured and replayed."""
+    if world == 1 and backend == "nccl":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+        torch.distributed.init_process_group("nccl", init_method="env://", rank=0, world_size=1)
+        return device, torch.distributed.group.WORLD
+    device = D.init_distributed(device, backend)
+    return device, D.data_group()
+
+
+def _profiled(case, cfg, nets, batches, graphs: bool, device) -> Dict:
+    """A graphed run's warm-up, capture and a replay (an eager run's first
+    step), then one step profiled (`_profile_step`)."""
+    state = nets.fresh(cfg, G.RAdam)
+    step = case.make_step(cfg, graphs)
+    warm = 3 if graphs else 1
+    for batch in batches[:warm]:
+        state, _ = step(state, batch)
+    out = _profile_step(state, step, batches[warm], device)
+    state.optimizer.zero_grad(set_to_none=True)
+    del step, state
+    _sync(device)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _graphed_main(device, backend, cases, scale, size, frames, seed, env, timing, eager_runs):
+    # the lockstep's deterministic mode asks this of cuBLAS before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", G.CUBLAS_DETERMINISTIC)
+    os.environ.update(env)
+    world = int(os.environ["WORLD_SIZE"])
+    device, group = _join(device, backend, world)
+    rank = D.process_index()
+    out = dict(rank=rank, device=str(device), backend=D.group_backend(group), env=env,
+               card=torch.cuda.get_device_name(device), cases={})
+    nets = {}
+    with torch.cuda.device(device):
+        for case in cases:
+            cfg = _line_cfg(Line(case.name, case.stage, (), 0), scale, size, frames)
+            b = cfg.train.batch_size
+            if b % world:
+                raise ValueError(f"global batch {b} over {world} ranks")
+            rows = slice(rank * b // world, (rank + 1) * b // world)
+            batches = [{k: v[rows] for k, v in batch.items()}
+                       for batch in global_batches(cfg, max(case.steps, timing, 4), seed)]
+            if case.stage not in nets:      # one stage's networks on the card at a time
+                nets.clear()
+                torch.cuda.empty_cache()
+                nets[case.stage] = G.Nets(cfg, seed, device, group)
+            res = dict(lockstep=G.lockstep(case, cfg, nets[case.stage], batches,
+                                           eager_runs=eager_runs),
+                       reads_per_step=case.reads_per_step(case.config(cfg)))
+            if timing and case is cases[0]:
+                alone = dataclasses.replace(case, steps=timing)
+                res.update(graphed=G.timed(alone, cfg, nets[case.stage], batches, True),
+                           eager=G.timed(alone, cfg, nets[case.stage], batches, False))
+                res["profiled"] = {name: _profiled(case, cfg, nets[case.stage], batches, graphs,
+                                                   device)
+                                   for name, graphs in (("graphed", True), ("eager", False))}
+            out["cases"][case.name] = res
+            torch.distributed.barrier()
+    nets.clear()
+    return out
+
+
+def run_graphed(world: int, device=None, backend: str = "nccl", cases=GRAPHED_CASES,
+                scale: int = 1, size: Optional[int] = None, frames: Optional[int] = None,
+                seed: int = 0, pinned: bool = False, timing: int = 8,
+                eager_runs: int = G.EAGER_RUNS, timeout: Optional[float] = None) -> List[Dict]:
+    """`cases` on `world` ranks (at world 1 over NCCL, a one-rank group),
+    each graphed step in lockstep with `eager_runs` eager steps from the
+    same state under torch's deterministic algorithms
+    (train_graphs_check.lockstep, the ranks bit-equal after every step);
+    then, where `timing` (a number of steps, at least 3), the first case
+    graphed and eager alone over so many steps in the default mode (ms a
+    step, host ms in the step call) and one profiled step of each (NCCL's
+    kernels).  pinned: NCCL's algorithm and protocol pinned (PINNED) in
+    every rank.  Each rank's result, by rank."""
+    env = dict(PINNED) if pinned else {}
+    return D.spawn(_graphed_main, world, device, backend, tuple(cases), scale, size, frames,
+                   seed, env, timing, eager_runs, timeout=timeout)
+
+
+def verify_graphed(results: List[Dict], exact: bool = True) -> None:
+    """Raises AssertionError where a rank's graphed step parted from its
+    eager step (bit for bit where `exact`, else within GRAPHED_TOL, the
+    eager steps repeatable either way), where the ranks were not
+    bit-equal after a step, where a run captured other than one graph, or
+    launched other than its reads a step at every step and replay."""
+    for r in results:
+        for name, res in r["cases"].items():
+            lock, reads = res["lockstep"], res["reads_per_step"]
+            failures = G.verify(lock)
+            if not exact:
+                failures = [f for f in failures if "graphed differs" not in f]
+                for i, s in enumerate(lock["steps"]):
+                    failures += [f"{k} of step {i + 1}: {s['distance'][k]:.3e} from eager "
+                                 f"(bound {tol:g})" for k, tol in GRAPHED_TOL.items()
+                                 if not s["equal"][k] and not s["distance"][k] <= tol]
+            where = f"rank {r['rank']} {name}"
+            assert not failures, f"{where}: {failures}"
+            assert all(s["ranks_equal"] for s in lock["steps"]), f"{where}: ranks differ"
+            n = len(lock["steps"])
+            assert lock["captures"] == 1, f"{where}: {lock['captures']} captures"
+            assert lock["graphed_launches"] == reads * n and \
+                lock["launches"] == reads * n * (lock["eager_runs"] + 1), \
+                f"{where}: reads {lock['graphed_launches']} graphed, {lock['launches']} in all, " \
+                f"want {reads} a step"
+            for kind in ("graphed", "eager"):
+                if kind in res:
+                    assert res[kind]["launches"] == reads * len(res[kind]["ms"]), \
+                        f"{where}: {kind} alone launched {res[kind]['launches']} reads"
+
+
+def summary_graphed(results: List[Dict]) -> str:
+    """Printable lines: per case, each rank's lockstep (steps bit-equal,
+    ranks equal, reads), and the timed runs beside each other."""
+    r0 = results[0]
+    lines = [f"{len(results)} rank(s) over {r0['backend']} on {r0['card']} "
+             f"({', '.join(r['device'] for r in results)}); NCCL environment {r0['env'] or 'unpinned'}"]
+    for name, res in r0["cases"].items():
+        for r in results:
+            lock = r["cases"][name]["lockstep"]
+            equal = ["yes" if all(s["equal"].values()) else "NO" for s in lock["steps"]]
+            lines.append(f"  {name} rank {r['rank']}: graphed = eager bit for bit a step "
+                         f"{equal}, ranks equal {[s['ranks_equal'] for s in lock['steps']]}, "
+                         f"reads graphed {lock['graphed_launches']} merged "
+                         f"{lock['graphed_merges']}, in all {lock['launches']}, captures "
+                         f"{lock['captures']} ({lock['capture_s']:.2f} s)")
+        if "graphed" in res:
+            g, e = res["graphed"], res["eager"]
+            pg, pe = res["profiled"]["graphed"], res["profiled"]["eager"]
+            lines.append(
+                f"  {name} timed on rank 0: graphed {g['step_ms']:.1f} ms a step (host "
+                f"{g['host_step_ms']:.2f} ms in the step call), eager {e['step_ms']:.1f} ms "
+                f"(host {e['host_step_ms']:.2f}), {e['step_ms'] / g['step_ms']:.2f}x; peak "
+                f"{g['peak_gb']:.2f} / {e['peak_gb']:.2f} GB; profiled: graphed {pg['ms']:.1f} "
+                f"ms, kernels {pg['device_ms']:.1f} ms, NCCL {pg['nccl_ms']:.2f} ms "
+                f"({pg['nccl_ms'] / pg['ms']:.1%}), copies {pg['memcpy_ms']:.2f} ms; eager "
+                f"{pe['ms']:.1f} ms, NCCL "
+                f"{pe['nccl_ms']:.2f} ms, all-reduce host {pe['all_reduce_host_ms']} ms; NCCL "
+                f"kernels {json.dumps(pg['nccl'])}")
+    return "\n".join(lines)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--device", default=None)
     ap.add_argument("--backend", default=None)
     ap.add_argument("--scale", type=int, default=1)
+    ap.add_argument("--graphed", action="store_true",
+                    help="the graphed step against the eager one (NCCL; pinned at more than 2 "
+                         "ranks, then unpinned with its timing), not the ranks against 1 process")
     ap.add_argument("--out", default=None, help="the results as JSON")
     args = ap.parse_args()
-    results = run(args.ranks, args.device, args.backend, scale=args.scale)
-    print(summary(results))
+    if args.graphed:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", G.CUBLAS_DETERMINISTIC)
+        runs = {}
+        if args.ranks > 2:
+            runs["pinned"] = run_graphed(args.ranks, args.device, scale=args.scale, pinned=True)
+        runs["unpinned"] = run_graphed(args.ranks, args.device, scale=args.scale,
+                                       cases=GRAPHED_CASES[:1] if runs else GRAPHED_CASES)
+        for name, results in runs.items():
+            print(summary_graphed(results))
+        results = runs
+    else:
+        results = run(args.ranks, args.device, args.backend, scale=args.scale)
+        print(summary(results))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    verify(results)
+    if args.graphed:
+        for name, res in results.items():
+            verify_graphed(res, exact=name == "pinned" or args.ranks <= 2)
+    else:
+        verify(results)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,9 @@ bit for bit.  `verify` holds, at every step:
   * the graphed step's equal to theirs bit for bit (gradients: the
     parameters' `.grad` after the step, which a replay binds to the pool's);
   * RAdam's hold: no parameter moves while its count is at most 5;
-  * the metrics kept across steps are the steps' own (not the pool's).
+  * the metrics kept across steps are the steps' own (not the pool's);
+  * with a process group (`Nets(group=...)`, tools/ddp_check.py), every
+    rank's parameters and moments bit-equal after the graphed step.
 
 Controls, which `verify` must reject: `FrozenScalarRAdam` computes a step's
 scalars on the host, as the port's RAdam did before its count moved to
@@ -58,6 +60,7 @@ import torch
 
 from ..config import Config
 from ..kernels import memory_attn as ma
+from ..parallel import dist as D
 from ..train import trainer as T
 from ..train.optim import RAdam, _f32, rectified_scalars
 from ..utils.checkpoint import restore_train_state
@@ -171,10 +174,12 @@ def _same_bits(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> bool:
 
 
 class Nets:
-    """One init of a case's networks, reloaded in place before each run."""
+    """One init of a case's networks, reloaded in place before each run;
+    with a process group, this rank's copy (tools/ddp_check.py)."""
 
-    def __init__(self, cfg: Config, seed: int, device):
-        self.state = T.init_train_state(cfg, seed=seed, device=device)
+    def __init__(self, cfg: Config, seed: int, device, group=None):
+        self.group = group
+        self.state = T.init_train_state(cfg, seed=seed, device=device, group=group)
         self.init = [{k: v.clone() for k, v in net.state_dict().items()}
                      for net in (self.state.stm, self.state.fba)]
 
@@ -186,7 +191,7 @@ class Nets:
         if optimizer is not RAdam:
             group = opt.param_groups[0]
             opt = optimizer(group["params"], lr=opt.schedule, weight_decay=group["weight_decay"])
-        return T.TrainState(stm, fba, opt)
+        return T.TrainState(stm, fba, opt, group=self.group)
 
 
 def _tensors(state) -> List[torch.Tensor]:
@@ -230,10 +235,12 @@ def _read_counts() -> Tuple[int, Tuple[int, int]]:
 
 
 def lockstep(case: Case, cfg: Config, nets: Nets, batches: Sequence, optimizer: type = RAdam,
-             eager_first: int = 0, restore: Optional[Tuple[int, str]] = None) -> Dict:
-    """The graphed run of `case`, each step beside EAGER_RUNS eager steps
+             eager_first: int = 0, restore: Optional[Tuple[int, str]] = None,
+             eager_runs: int = EAGER_RUNS) -> Dict:
+    """The graphed run of `case`, each step beside `eager_runs` eager steps
     from the same state, under `deterministic` (see the module's
-    docstring).  eager_first: so many steps of the run eager before the
+    docstring; with one, the eager step's repeatability goes unchecked).
+    eager_first: so many steps of the run eager before the
     graphed ones; restore (i, path): restore_train_state(path) into the
     state after step i.  Returns per step the loss, whether the eager steps
     agreed and the graphed one equalled them bit for bit per quantity, the
@@ -250,7 +257,7 @@ def lockstep(case: Case, cfg: Config, nets: Nets, batches: Sequence, optimizer: 
         for i in range(case.steps):
             pre = _save(state)
             outs = []
-            for _ in range(EAGER_RUNS):
+            for _ in range(eager_runs):
                 state, metrics = eager(state, batches[i])
                 outs.append(_outcome(state, pre, metrics["loss"]))
                 _restore(state, pre)
@@ -270,12 +277,14 @@ def lockstep(case: Case, cfg: Config, nets: Nets, batches: Sequence, optimizer: 
                 equal={k: _same_bits(got[k], outs[0][k]) for k in QUANTITIES},
                 distance={k: _norm_rel(got[k], outs[0][k]) for k in QUANTITIES},
                 held=(None if state.optimizer.param_groups[0]["step"] >= MOVED
-                      else not any(d.any() for d in got["delta"]))))
+                      else not any(d.any() for d in got["delta"])),
+                ranks_equal=(None if state.group is None
+                             else D.ranks_equal(_tensors(state), state.group))))
             del pre, outs, got
             if restore and i + 1 == restore[0]:
                 restore_train_state(restore[1], state)
         compiled = graphed.graphs
-        out = dict(steps=steps, launches=ma.launches,
+        out = dict(steps=steps, launches=ma.launches, eager_runs=eager_runs,
                    merges=(ma.cluster_launches, ma.l2_merge_launches),
                    graphed_launches=graphed_reads, graphed_merges=tuple(graphed_merges),
                    kept_equal=torch.stack(kept).cpu().tolist() == [s["loss"] for s in steps],
@@ -300,6 +309,8 @@ def verify(result: Dict) -> List[str]:
                            f"{s['distance'][k]:.3e}")
         if s["held"] is False:
             bad.append(f"step {i + 1} moved parameters in RAdam's hold")
+        if s.get("ranks_equal") is False:
+            bad.append(f"step {i + 1}: the ranks' parameters and moments differ")
     if not result["kept_equal"]:
         bad.append("the metrics kept across steps changed after their step")
     return bad

@@ -17,10 +17,11 @@ key; a Loader's batches, which drop the last partial one, make one key),
 static inputs outside it.
 
 Key: the step's own settings (kind and stage, compute dtype, remat), the
-wire batch's names, shapes, strides and dtypes, and the device.  The
-static inputs take the batch's strides, as the eager step's copy to the
-device does: a reduction over another layout sums in another order.  A
-key's first call runs the step eagerly on the capture stream: the warm-up,
+wire batch's names, shapes, strides and dtypes, the device, and a process
+group's size and backend.  The static inputs take the batch's strides, as
+the eager step's copy to the device does: a reduction over another layout
+sums in another order.  A key's first call runs the step eagerly on the
+capture stream: the warm-up,
 whose results are that step's, and which makes every lazy thing the step
 needs (the read's library, cluster table and the capture stream's L2
 workspace, cuDNN's plans, the losses' constants, RAdam's moments).  Its
@@ -45,12 +46,31 @@ before, `advance` after), never by a capture.  The step's scalars come
 from RAdam's device step (train/optim.py), so each replay takes its own
 learning rate and step size.
 
+Data parallelism (the JAX package's step over its data mesh, one
+executable with jit's psums in it).  A state with an NCCL process group
+replays on every rank one graph a step that holds the rank's collectives
+too: GlobalSum's all-reduce in the forward and in the backward (the
+exclusion loss's global-batch means) and the bucketed gradient all-reduce
+after the backward (parallel/dist.py).  The gradients' host part, which
+parameters any rank holds a gradient for, is a plan made by the key's
+eager first step (one collective, read on the host) and kept per key
+(`D.GradientPlans`); the graph holds its device part, which reads nothing
+back.  That first step also makes NCCL's communicator before any capture.
+Collectives in graphs pair up across ranks only if every rank captures and
+replays the same keys in the same order: before a key's first step the
+ranks compare digests of their keys in one collective, and a mismatch
+raises on every rank (`D.check_same_key`).  Every collective is
+synchronous (async_op=False), as in the eager step: NCCL's stream waits
+for the work before it and the step's stream for NCCL's, so no collective
+runs beside the fp32 reads' cooperative L2 merge, which needs its whole
+grid on the card.  gloo's collectives run on the host and cannot be
+captured: a state with a gloo group is refused (`refusal`).
+
 Metrics are copies out of the pool (the next replay overwrites it), so a
 caller may keep them across steps.  A failed warm-up, capture or replay
 raises; nothing gives way to the eager step.  A step under a lockstep
 check raises (tools/kernel_check.py: its host comparison cannot see a
-replay), as does a state with a process group (the gradient all-reduce
-reads the host) or on the CPU.
+replay), as does a state with a gloo group or on the CPU.
 """
 from __future__ import annotations
 
@@ -59,9 +79,11 @@ import itertools
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..kernels import memory_attn as ma
 from ..models.graphs import GraphCache
+from ..parallel import dist as D
 
 # forward(state, the wire batch's tensors on the device) -> (loss, metrics)
 Forward = Callable[[object, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -80,9 +102,10 @@ def refusal(state) -> Optional[str]:
     """Why the train step cannot run from a CUDA graph for `state`, or None."""
     if state.device.type != "cuda":
         return "CUDA graphs run on a CUDA card; on the CPU the eager step is the only one"
-    if state.group is not None:
-        return ("a state with a process group takes the eager step: its gradient all-reduce "
-                "reads the host and gloo cannot be captured")
+    if state.group is not None and D.group_backend(state.group) != "nccl":
+        return (f"a state whose process group is {D.group_backend(state.group)} takes the eager "
+                "step: gloo's collectives run on the host and cannot be captured in a CUDA "
+                "graph (NCCL's can)")
     return None
 
 
@@ -111,6 +134,7 @@ class TrainStepGraphs(GraphCache):
         # key -> its graph, or None after the warm-up
         self._graphs: Dict[tuple, Optional[_Graph]] = {}
         self._inputs: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self.plans = D.GradientPlans()      # a process group's gradient plan, per key
 
     def __call__(self, state, batch: Mapping) -> Dict[str, torch.Tensor]:
         why = refusal(state)
@@ -119,10 +143,12 @@ class TrainStepGraphs(GraphCache):
         if ma.host_checks:
             raise RuntimeError("a lockstep check is active, and it cannot see the reads of a "
                                "captured train step: use graphs=False to check")
-        device = state.device
+        device, group = state.device, state.group
         host = {k: torch.as_tensor(v) for k, v in batch.items()}
-        key = (self.static, device, tuple((k, tuple(x.shape), x.stride(), x.dtype)
-                                          for k, x in sorted(host.items())))
+        ranks = None if group is None else (dist.get_world_size(group), D.group_backend(group))
+        shared = (self.static, ranks, tuple((k, tuple(x.shape), x.stride(), x.dtype)
+                                            for k, x in sorted(host.items())))
+        key = (device, shared)
         with torch.cuda.device(device):
             if self.pool is None:
                 self._stream_on(device)
@@ -131,14 +157,16 @@ class TrainStepGraphs(GraphCache):
             opt = state.optimizer
             opt.prepare()
             if key not in self._graphs:
-                metrics = self._warm_up(lambda: self._first(state, statics))
+                if group is not None:       # before the key's first collective
+                    D.check_same_key(shared, group, device)
+                metrics = self._warm_up(lambda: self._first(state, statics, key))
                 for x in metrics.values():
                     x.record_stream(torch.cuda.current_stream())
                 self._graphs[key] = None
             else:
                 entry = self._graphs[key]
                 if entry is None:
-                    entry = self._graphs[key] = self._captured(state, statics)
+                    entry = self._graphs[key] = self._captured(state, statics, key)
                 elif entry.held != _held(state):
                     raise RuntimeError(
                         "the train state's modules, parameters, RAdam moments or step count are "
@@ -165,23 +193,29 @@ class TrainStepGraphs(GraphCache):
             statics[k].copy_(x)
         return statics
 
-    def _device_step(self, state, statics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """What a graph holds: forward, backward, RAdam's device work."""
+    def _device_step(self, state, statics: Dict[str, torch.Tensor], key: tuple
+                     ) -> Dict[str, torch.Tensor]:
+        """What a graph holds: forward, backward, with a process group the
+        gradients' mean over the ranks (the key's plan: made by the eager
+        first step, its device part alone in the graph), RAdam's device
+        work."""
         loss, metrics = self.forward(state, dict(statics))
         loss.backward()
+        if state.group is not None:
+            self.plans(key, state.optimizer.param_groups[0]["params"], state.group)
         state.optimizer.update()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def _first(self, state, statics) -> Dict[str, torch.Tensor]:
+    def _first(self, state, statics, key: tuple) -> Dict[str, torch.Tensor]:
         """The key's first step, eager (run on the capture stream)."""
         state.optimizer.zero_grad(set_to_none=True)
-        return self._device_step(state, statics)
+        return self._device_step(state, statics, key)
 
-    def _captured(self, state, statics) -> _Graph:
+    def _captured(self, state, statics, key: tuple) -> _Graph:
         """The key's step captured into the pool (run by the replay that
         follows)."""
         state.optimizer.zero_grad(set_to_none=True)
         graph, metrics, reads = self._capture(self.pool,
-                                              lambda: self._device_step(state, statics))
+                                              lambda: self._device_step(state, statics, key))
         grads = [p.grad for p in state.optimizer.param_groups[0]["params"]]
         return _Graph(graph, metrics, grads, reads, _held(state))

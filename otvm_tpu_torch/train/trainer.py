@@ -18,16 +18,19 @@ there.  State is updated in place; the step returns it for symmetry with
 the JAX package, and its metrics as device tensors (reading them waits for
 the device).  On a CUDA card the step replays a CUDA graph, as JAX's is one
 jitted executable (train/graphs.py: the key's first step eager, then one
-replay a step); `graphs=False` keeps the eager step.
+replay a step), alone or as one rank of an NCCL group; `graphs=False`
+keeps the eager step, and so do the CPU and a gloo group.
 
 Data parallelism (the JAX package's data mesh): a state made with a
 process `group` (parallel/dist.py) is one rank's copy; every rank starts
 from the same seeded init (checked), takes its rows of the global batch,
 and after the backward pass the gradients are averaged over the ranks, so
 every rank takes the 1-process step on the global batch.  The exclusion
-loss's batch means are taken over the global batch too.  A step's metrics
-are this rank's rows' (all_reduce_mean gives the global batch's, at log
-lines).
+loss's batch means are taken over the global batch too.  Over NCCL each
+rank replays one CUDA graph a step with those collectives inside it, the
+counterpart of the JAX package's mesh-sharded jitted step; the eager step
+runs the same arithmetic in the same order.  A step's metrics are this
+rank's rows' (all_reduce_mean gives the global batch's, at log lines).
 """
 from __future__ import annotations
 
@@ -120,8 +123,9 @@ def _apply(state: TrainState, loss: torch.Tensor) -> None:
 def _train_step(forward: Callable, static: tuple, graphs: Optional[bool]) -> Callable:
     """The train step of `forward` (state, the wire batch's tensors on the
     device) -> (loss, metrics): from CUDA graphs (train/graphs.py) where
-    `graphs` is True, or None and the state is on CUDA without a process
-    group; else eagerly.  graphs=True where graphs cannot serve raises."""
+    `graphs` is True, or None and graphs can serve the state (on CUDA,
+    alone or with an NCCL group: train/graphs.py refusal); else eagerly.
+    graphs=True where graphs cannot serve raises."""
     compiled = None if graphs is False else TrainStepGraphs(forward, static)
 
     def train_step(state: TrainState, batch: Mapping):
@@ -145,10 +149,11 @@ def make_train_step(cfg: Config, remat: bool = False, graphs: Optional[bool] = N
     metrics: loss, L_alpha_comp, L_lap, L_grad, L_tri (0-d tensors).
     remat: recompute the network calls and frame losses in the backward
     pass (joint_train_forward's remat, the JAX package's OTVM_REMAT=1).
-    graphs: None replays the step from a CUDA graph on a CUDA card without
-    a process group (train/graphs.py; the eager step elsewhere), False
-    keeps the eager step (the lockstep checks need it), True insists on
-    graphs.  train_step.graphs is the TrainStepGraphs (None when False)."""
+    graphs: None replays the step from a CUDA graph on a CUDA card, alone
+    or on each rank of an NCCL group (train/graphs.py; the eager step on
+    the CPU and with a gloo group), False keeps the eager step (the
+    lockstep checks need it), True insists on graphs.  train_step.graphs is
+    the TrainStepGraphs (None when False)."""
     stage, cdt = cfg.train.stage, _compute_dtype(cfg)
 
     def forward(state: TrainState, batch: Dict[str, torch.Tensor]):

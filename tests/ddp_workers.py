@@ -112,3 +112,96 @@ def collectives_rank():
                 r=r.grad, rows=D.all_gather_rows(x, group).tolist(),
                 mean_of=D.all_reduce_mean([x], group)[0].tolist(),
                 equal_x=D.ranks_equal([x], group), equal_ones=D.ranks_equal([p.detach()], group))
+
+
+def _all_reduce_gradients_unplanned(params, group, bucket_bytes):
+    """parallel/dist.py's all_reduce_gradients as it was before its plan and
+    device part were split (the mask read on the host in the same call):
+    the reference that the two parts must equal bit for bit."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    held = torch.tensor([float(p.grad is not None) for p in params])
+    dist.all_reduce(held, group=group)
+    for p, n in zip(params, held.tolist()):
+        if n and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params if p.grad is not None]
+    bucket, size = [], 0
+    for i, g in enumerate(grads):
+        bucket.append(g)
+        size += g.numel() * g.element_size()
+        last = i == len(grads) - 1
+        if last or size >= bucket_bytes or grads[i + 1].dtype != g.dtype:
+            flat = torch.cat([x.reshape(-1) for x in bucket])
+            dist.all_reduce(flat, group=group)
+            flat /= world
+            for x, piece in zip(bucket, flat.split([x.numel() for x in bucket])):
+                x.copy_(piece.view_as(x))
+            bucket, size = [], 0
+
+
+def _params(rank, step):
+    """Parameters with seeded gradients that differ by rank and step:
+    parameter 2 has none on rank 1, parameter 4 none on any rank, and the
+    fp64 parameter 5 starts a bucket of its own."""
+    gen = torch.Generator().manual_seed(100 * step + rank)
+    shapes = [(3, 4), (5,), (2, 2), (7,), (4,), (3,), (6,)]
+    params = [torch.nn.Parameter(torch.ones(s, dtype=torch.float64 if i == 5 else torch.float32))
+              for i, s in enumerate(shapes)]
+    for i, p in enumerate(params):
+        if not (i == 4 or (i == 2 and rank == 1)):
+            p.grad = torch.randn(p.shape, generator=gen, dtype=p.dtype) / 3
+    return params
+
+
+def gradient_plan_rank():
+    """The gradient plan (parallel/dist.py) on 2 CPU ranks: -> per check,
+    what this rank saw."""
+    D.init_distributed("cpu")
+    group, rank = D.data_group(), D.process_index()
+    bits = lambda ps: [None if p.grad is None else p.grad.view(-1).tolist() for p in ps]
+    out = {}
+    # the two parts (and all_reduce_gradients, made of them) against the
+    # unsplit function, over 3 steps of other gradients
+    same = []
+    for step in range(3):
+        want, got, planned = _params(rank, step), _params(rank, step), _params(rank, step)
+        _all_reduce_gradients_unplanned(want, group, 40)
+        D.all_reduce_gradients(got, group, bucket_bytes=40)
+        plan = D.plan_gradients(planned, group, bucket_bytes=40)
+        D.reduce_gradients(plan, planned)
+        same.append(bits(want) == bits(got) == bits(planned))
+    out.update(same=same, held=plan.held, buckets=plan.buckets, world=plan.world,
+               none=[p.grad is None for p in planned], grad=bits(planned))
+    # one plan a key, made by the key's first call and reused
+    plans, made = D.GradientPlans(bucket_bytes=40), []
+    make = D.plan_gradients
+    D.plan_gradients = lambda *a, **k: made.append(1) or make(*a, **k)
+    try:
+        firsts, planned_same = [], []
+        for step in range(3):
+            params, want = _params(rank, step), _params(rank, step)
+            firsts.append(plans("key", params, group))
+            _all_reduce_gradients_unplanned(want, group, 40)
+            planned_same.append(bits(params) == bits(want))
+        out.update(made=len(made), reused=all(p is firsts[0] for p in firsts),
+                   planned_same=planned_same)
+        # a step that contradicts the plan: a gradient that no rank held
+        params = _params(rank, 3)
+        params[4].grad = torch.ones(4)
+        try:
+            plans("key", params, group)
+            out["contradiction"] = None
+        except RuntimeError as e:
+            out["contradiction"] = str(e)
+    finally:
+        D.plan_gradients = make
+    # the keys of the ranks' steps: equal ones pass, different ones raise
+    D.check_same_key(("joint", 4, (("fg", (2, 3)),)), group, torch.device("cpu"))
+    try:
+        D.check_same_key(("joint", 4, (("fg", (2 + rank, 3)),)), group, torch.device("cpu"))
+        out["keys"] = None
+    except RuntimeError as e:
+        out["keys"] = str(e)
+    return out

@@ -37,7 +37,7 @@ from otvm_tpu_torch.models.graphs import AlphaGraphs, FrameStepGraphs, TrimapSte
 from otvm_tpu_torch.models.otvm import (eval_frame_step, make_eval_bank, make_models,
                                         serving_models)
 from otvm_tpu_torch.nn.layers import freeze_for_inference
-from tests.torch_port import jax_joint_variables
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODES = {"default": {}, "batch2": {"BENCH_BATCH": "2"}, "chunk2": {"BENCH_CHUNK": "2"},

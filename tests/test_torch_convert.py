@@ -15,7 +15,7 @@ from otvm_tpu.convert import convert_fba, convert_stm
 from otvm_tpu_torch import convert
 from otvm_tpu_torch.eval.runner import EvalProtocol, StreamingEvaluator
 from otvm_tpu_torch.models.otvm import make_eval_bank, make_models
-from tests.torch_port import jax_joint_variables
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -14,11 +14,24 @@ cards (4 for the 4-rank case) and no JAX:
     a profiled one (the all-reduce's NCCL kernels), a bf16 step; a stage-1
     and a trimap-s1 step.  Each case's
     numbers go to the junit properties (--junitxml=...).
+  * 2 and 4 ranks replay the train step from CUDA graphs with their NCCL
+    collectives captured (ddp_check.run_graphed, GRAPHED_CASES at full
+    width): every graphed step bit for bit with the eager step from the
+    same state under torch's deterministic algorithms, the ranks bit-equal
+    after every step, the reads counted at every replay.  At 4 ranks NCCL's
+    algorithm and protocol are pinned (ddp_check.PINNED) for that check,
+    and an unpinned run of the fp32 case is held to eager within
+    ddp_check.GRAPHED_TOL and timed beside it.
   * torchrun --nproc_per_node 2 of the stage-4 training CLI on
-    scripts/make_synth_data.py's data: one checkpoint and one log, rank 0's.
+    scripts/make_synth_data.py's data, graphed (its default): one
+    checkpoint and one log, rank 0's, whose step line says so.
 """
 import json
 import os
+
+# the graphed check's deterministic mode asks this of cuBLAS before its
+# first call (the ranks are spawned with this environment)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import subprocess
 import sys
 
@@ -52,6 +65,30 @@ def test_nccl_ranks_take_the_one_process_step(ranks, record_property):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_nccl_ranks_replay_the_graphed_step_as_eager(ranks, record_property):
+    _need_cards(ranks)
+    from otvm_tpu_torch.tools import ddp_check
+
+    runs = {}
+    if ranks > 2:
+        runs["pinned"] = ddp_check.run_graphed(ranks, pinned=True, timeout=1200)
+    runs["unpinned"] = ddp_check.run_graphed(
+        ranks, cases=ddp_check.GRAPHED_CASES[:1] if runs else ddp_check.GRAPHED_CASES,
+        timeout=1200)
+    for name, results in runs.items():
+        summary = ddp_check.summary_graphed(results)
+        print(summary)
+        record_property(f"{name} summary", summary)
+        record_property(f"{name} results", json.dumps(results))
+    for name, results in runs.items():
+        ddp_check.verify_graphed(results, exact=name == "pinned" or ranks == 2)
+        assert [r["device"] for r in results] == [f"cuda:{i}" for i in range(ranks)]
+        assert all(r["backend"] == "nccl" for r in results)
+        assert results[0]["cases"]["fp32 stage 4"]["profiled"]["graphed"]["nccl_ms"] > 0
+
+
+@pytest.mark.cuda
 def test_torchrun_training_cli(tmp_path):
     _need_cards(2)
     data = tmp_path / "data"
@@ -72,5 +109,6 @@ def test_torchrun_training_cli(tmp_path):
     assert len(logs) == 1 and {"config.yaml", "ckpt_e1"} <= set(os.listdir(run_dir))
     text = (run_dir / logs[0]).read_text()
     assert text.count(" I0 ") == 1 and "ranks 2" in text
+    assert "one CUDA-graph replay a step on each of 2 nccl ranks" in text
     ckpt = torch.load(tmp_path / "weights" / "s4_OTVM", map_location="cpu", weights_only=True)
     assert ckpt["step"] == 2 and not any(k.startswith("module.") for k in ckpt["stm"])

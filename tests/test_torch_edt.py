@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from otvm_tpu.nn import edt as jedt
 from otvm_tpu_torch.nn import edt as tedt
+from tests.torch_port import one_thread  # noqa: F401
 
 trimap_clicks_jax = jax.jit(jedt.trimap_clicks, static_argnames=("exact",))
 

@@ -17,6 +17,12 @@ trimap-only steps build the full-width models only):
     out of the host buffers, and `frame_window_indices` /
     `load_frame_window`.
 
+The paths are spread over three files, each with its own JAX compiles,
+which the suite's workers take in parallel: the chunked paths and the
+host-side pieces here, `alpha_predict` and stages 1-2 in
+test_torch_eval_paths_alpha.py, the trimap-only paths in
+test_torch_eval_paths_trimap.py.
+
 Stream tolerances (tests/test_torch_stream.py's argument): frame 0 reads
 the GT trimap, every value within 1e-3; later frames read a propagated
 trimap through an argmax, where random weights leave near-ties, so at most
@@ -31,12 +37,11 @@ import jax.numpy as jnp
 
 from otvm_tpu.eval import runner as jrunner
 from otvm_tpu.models import otvm as jotvm
-from otvm_tpu_torch.convert import fba_from_jax, from_jax, stm_from_jax
-from otvm_tpu_torch.eval.runner import (EvalProtocol, StreamingEvaluator, TrimapEvaluator,
-                                        _Device, frame_window_indices, load_frame_window)
-from otvm_tpu_torch.models.otvm import (alpha_predict, eval_chunk_step, eval_frame_step,
-                                        init_models, make_eval_bank, trimap_eval_step)
-from tests.torch_port import jax_joint_variables
+from otvm_tpu_torch.convert import from_jax
+from otvm_tpu_torch.eval.runner import (EvalProtocol, StreamingEvaluator, _Device,
+                                        frame_window_indices, load_frame_window)
+from otvm_tpu_torch.models.otvm import eval_chunk_step, eval_frame_step, make_eval_bank
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 H, W, N = 32, 64, 6
 PROTO = dict(memory_max_num=2, memory_skip_frame=3)
@@ -158,46 +163,6 @@ def test_chunked_stream_matches_jax(joint):
     assert pbank.count == int(jbank.count)
 
 
-@pytest.mark.parametrize("stage", [1, 2])
-def test_alpha_predict_matches_jax(stage):
-    _, fba_vars = jax_joint_variables(stage, 1, H, W, seed=30 + stage)
-    frames, tri = _video(3, 31)
-    gts = [tri, tri[:, ::-1].copy(), np.roll(tri, 5, axis=1)]
-    jev = jrunner.StreamingEvaluator(None, fba_vars, jrunner.EvalProtocol(stage=stage))
-    ja, jt, _ = jev.run_video(frames, tri, gt_trimaps=gts)
-    ev = StreamingEvaluator(None, fba_from_jax(fba_vars, refinement=False),
-                            EvalProtocol(stage=stage), device="cpu")
-    ta, tt, _ = ev.run_video(frames, tri, gt_trimaps=gts)
-    assert len(ta) == len(ja) == 3 and len(tt) == 3
-    for i in range(3):
-        np.testing.assert_allclose(ta[i], ja[i], atol=1e-3, rtol=0)
-        assert tt[i] is gts[i]                       # the given trimaps come back
-    # the step itself, on a soft trimap: alpha and all 7 channels
-    soft = np.random.RandomState(32).dirichlet(np.ones(3), (1, H, W)).astype(np.float32)
-    u8 = _u8(frames[:1])
-    ja1, j7 = jotvm.alpha_predict(fba_vars, jnp.asarray(u8), jnp.asarray(soft), stage=stage)
-    ta1, t7 = alpha_predict(ev.fba, torch.from_numpy(u8), torch.from_numpy(soft))
-    assert ta1.shape == (1, H, W, 1) and t7.shape == (1, H, W, 7)
-    np.testing.assert_allclose(ta1.numpy(), np.asarray(ja1), atol=1e-3, rtol=0)
-    np.testing.assert_allclose(t7.numpy(), np.asarray(j7), atol=1e-3, rtol=0)
-
-
-def test_stage_1_2_runs_without_a_trimap_state():
-    """No trimap network at stages 1-2: None or {} for its state; without
-    per-frame trimaps only frame 0 (whose trimap is given) runs."""
-    _, fba = init_models(seed=3, stage=2, scale=4)
-    frames, tri = _video(3, 33, 64, 64)
-    for state in (None, {}):
-        ev = StreamingEvaluator(state, fba.state_dict(), EvalProtocol(stage=2, scale=4),
-                                device="cpu")
-        assert ev.stm is None
-        alphas, trimaps, _ = ev.run_video(frames, tri)
-        assert len(alphas) == 1 and trimaps[0] is tri
-        assert alphas[0].shape == (64, 64) and 0.0 <= alphas[0].min() <= alphas[0].max() <= 1.0
-        alphas, _, _ = ev.run_video(frames, tri, gt_trimaps=[tri] * 5)
-        assert len(alphas) == 3
-
-
 def test_protocol_rejects_an_unapplied_trimap_width(tmp_path, monkeypatch):
     """evaluate_vm108 scores each clip on the unknown region of its GT
     trimaps dilated by the protocol's width, radius 5 / 12 / 20
@@ -250,59 +215,6 @@ def test_fetched_outputs_own_their_memory():
     assert not np.shares_memory(got, host.numpy())
     host.zero_()
     assert got.tolist() == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
-
-
-@pytest.fixture(scope="module")
-def stm1():
-    stm_vars = jax_joint_variables(1, 1, H, W, seed=40)[0]
-    return stm_vars, stm_from_jax(stm_vars, hdim=-1)
-
-
-def test_trimap_evaluator_matches_jax(stm1):
-    stm_vars, stm_sd = stm1
-    frames, tri = _video(N, 41)
-    jt, _ = jrunner.TrimapEvaluator(stm_vars, jrunner.EvalProtocol(**PROTO)).run_video(frames, tri)
-    tt, _ = TrimapEvaluator(stm_sd, EvalProtocol(**PROTO), device="cpu").run_video(frames, tri)
-    assert len(tt) == len(jt) == N
-    np.testing.assert_array_equal(tt[0], tri)
-    for i in range(N):
-        assert tt[i].shape == (H, W, 3) and tt[i].dtype == np.float32
-        _stream_close(tt[i], jt[i], i, "trimap")
-        _labels_agree(tt[i], jt[i], i)
-
-
-@pytest.mark.parametrize("memorize_gt", [False, True])
-def test_trimap_eval_step_matches_jax(stm1, memorize_gt):
-    """Every frame memorized; a bank of at most 2 and a memorize every 3rd
-    frame overflow at frame 3, which evicts slot 1 (slot 0 kept), or slot
-    0 with memorize_gt."""
-    stm_vars, stm_sd = stm1
-    stm = TrimapEvaluator(stm_sd, EvalProtocol(**PROTO), device="cpu").stm
-    frames, tri = _video(N, 42)
-    flags, max_num, _ = EvalProtocol(**PROTO).flags(N, H, W)
-    jbank = jotvm.make_eval_bank(1, H, W, max_num)
-    pbank = make_eval_bank(1, H, W, max_num, device="cpu")
-    first_keys = None
-    for i, (first, mem, _) in enumerate(flags):
-        jbank, jpred = jotvm.trimap_eval_step(
-            stm_vars, jbank, jnp.asarray(frames[i][None]), jnp.asarray(tri[None]),
-            jnp.asarray(first), jnp.asarray(mem), max_memory_num=max_num, memorize_gt=memorize_gt)
-        pbank, ppred = trimap_eval_step(stm, pbank, torch.from_numpy(frames[i][None]),
-                                        torch.from_numpy(tri[None]), first, mem, max_num,
-                                        memorize_gt=memorize_gt)
-        assert pbank.count == int(jbank.count), i
-        _stream_close(ppred.numpy(), np.asarray(jpred), i, "trimap")
-        _labels_agree(ppred.numpy(), np.asarray(jpred), i)
-        if first:
-            first_keys = pbank.keys[:, 0].clone()
-        if memorize_gt:   # the memories are of the GT trimap: the same on both sides
-            scale = float(np.abs(np.asarray(jbank.keys)).max())
-            np.testing.assert_allclose(pbank.keys[:, :pbank.count].numpy(),
-                                       np.asarray(jbank.keys)[:, :pbank.count],
-                                       atol=1e-4 * scale, rtol=0)
-    assert [f[1] for f in flags[:4]] == [True, False, False, True] and pbank.count == 2
-    # frame 3 overflowed: slot 0 is frame 0's memory unless memorize_gt evicted it
-    assert torch.equal(pbank.keys[:, 0], first_keys) != memorize_gt
 
 
 @pytest.mark.parametrize("idx,num,total", [(0, 3, 10), (5, 3, 10), (9, 3, 10), (5, 4, 10),

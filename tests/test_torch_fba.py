@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from otvm_tpu.models import fba as jfba
 from otvm_tpu_torch.convert import fba_from_jax
 from otvm_tpu_torch.models import fba as tfba
-from tests.torch_port import jax_joint_variables
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 H = W = 64
 SCALE = 4

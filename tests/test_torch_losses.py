@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from otvm_tpu.train import losses as JL
 from otvm_tpu_torch.train import losses as TL
+from tests.torch_port import one_thread  # noqa: F401
 
 B, H, W = 2, 40, 56     # not multiples of 32: the Laplacian losses pad
 

@@ -18,7 +18,7 @@ jax = pytest.importorskip("jax")
 from otvm_tpu.eval import runner as jrunner
 from otvm_tpu_torch.convert import from_jax
 from otvm_tpu_torch.eval.runner import EvalProtocol, MultiStreamEvaluator
-from tests.torch_port import jax_joint_variables
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 SCALE = 4
 PROTO = dict(memory_max_num=2, memory_skip_frame=3, scale=SCALE)

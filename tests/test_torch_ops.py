@@ -12,7 +12,7 @@ from otvm_tpu.nn import layers as jl
 from otvm_tpu.nn import ops as jo
 from otvm_tpu_torch.nn import layers as tl
 from otvm_tpu_torch.nn import ops as to
-from tests.torch_port import nchw, nhwc
+from tests.torch_port import nchw, nhwc, one_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -24,7 +24,7 @@ from otvm_tpu_torch import convert
 from otvm_tpu_torch.models import fba as tfba
 from otvm_tpu_torch.nn.layers import freeze_for_inference
 from otvm_tpu_torch.nn.resnet_bn import BNAffine
-from tests.torch_port import random_variables
+from tests.torch_port import random_variables, one_thread  # noqa: F401
 
 H = W = 32
 ARCH = "resnet50_BN"

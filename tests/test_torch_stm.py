@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from otvm_tpu.models.stm import STM as JSTM
 from otvm_tpu_torch.convert import stm_from_jax
 from otvm_tpu_torch.models.stm import STM
-from tests.torch_port import jax_joint_variables
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 H = W = 64
 SCALE = 4

@@ -26,7 +26,7 @@ from otvm_tpu.eval.runner import EvalProtocol as JProtocol
 from otvm_tpu.eval.runner import StreamingEvaluator as JEvaluator
 from otvm_tpu_torch.convert import from_jax
 from otvm_tpu_torch.eval.runner import EvalProtocol, StreamingEvaluator
-from tests.torch_port import jax_joint_variables
+from tests.torch_port import jax_joint_variables, one_thread  # noqa: F401
 
 CASES = {
     "scale4": dict(scale=4, h=64, w=64, frames=8, skip=3, max_num=2),

@@ -12,8 +12,8 @@ the CPU:
   * the schedules take a device step and give their int step's value;
   * a state_dict of the host-scalar RAdam loads into the device-step one,
     into the moment and step tensors it already holds;
-  * graphs=True refuses the CPU and a process group; the CPU's default is
-    the eager step;
+  * graphs=True refuses the CPU and a gloo process group; the CPU's
+    default is the eager step;
   * under torch.use_deterministic_algorithms(True), the forms nn/ops.py
     takes (bilinear resize and adaptive pooling as matrix products, reflect
     padding as flipped slices) equal torch's ops, values and gradients, to
@@ -31,6 +31,7 @@ import torch
 from otvm_tpu_torch import config
 from otvm_tpu_torch.data.loader import encode_wire
 from otvm_tpu_torch.nn import ops
+from otvm_tpu_torch.parallel import dist as D
 from otvm_tpu_torch.train import optim as topt
 from otvm_tpu_torch.train import trainer as T
 from otvm_tpu_torch.train.graphs import TrainStepGraphs
@@ -151,14 +152,17 @@ def cpu_state():
 
 
 @pytest.mark.parametrize("factory", ["make_train_step", "make_trimap_s1_train_step"])
-def test_graphs_true_refuses_the_cpu_and_a_process_group(cpu_state, factory):
+def test_graphs_true_refuses_the_cpu_and_a_process_group(cpu_state, factory, monkeypatch):
+    """The CPU, and a gloo process group (an NCCL one takes the graphs:
+    tests/test_torch_ddp_graphs.py)."""
     cfg, state, batch = cpu_state
     step = getattr(T, factory)(cfg, graphs=True)
     with pytest.raises(ValueError, match="CPU"):
         step(state, batch)
     assert state.step == 0 and state.optimizer.param_groups[0]["step"] == 0
     on_card = types.SimpleNamespace(device=torch.device("cuda"), group=object())
-    with pytest.raises(ValueError, match="process group"):
+    monkeypatch.setattr(D, "group_backend", lambda group: "gloo")
+    with pytest.raises(ValueError, match="process group is gloo"):
         step(on_card, batch)
     assert isinstance(step.graphs, TrainStepGraphs)
     assert getattr(T, factory)(cfg, graphs=False).graphs is None

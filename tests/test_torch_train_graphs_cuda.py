@@ -20,7 +20,12 @@ for bit, which each step checks):
   * restore_train_state between two replays gives the eager run's next
     steps from the same file, on the same graph;
   * a step under a lockstep check, and a state whose moments were replaced,
-    raise.
+    raise;
+  * a state with a one-rank NCCL group (tools/ddp_check.py run_graphed):
+    its graph holds NCCL's collectives (GlobalSum's and the gradient
+    all-reduce), bit for bit with the eager step at every step of fp32
+    stage 4 over 8 steps, remat, bf16 and trimap-s1, with the reads
+    counted at every replay.
 
 Needs a card and no JAX:
 `python -m pytest --noconftest -m cuda tests/test_torch_train_graphs_cuda.py`."""
@@ -164,3 +169,21 @@ def test_lockstep_and_replaced_moments_are_refused():
         step(state, batches[3])
     assert state.step == 3 and np.isfinite(step.graphs.capture_s)
     opt.zero_grad(set_to_none=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", SCALES)
+def test_a_one_rank_nccl_group_replays_its_collectives(scale):
+    """tools/ddp_check.py run_graphed at world 1: a one-rank NCCL group,
+    spawned (its collectives are NCCL's, captured and replayed), global
+    batch 4 at 64x64, S 3."""
+    _cuda()
+    from otvm_tpu_torch.tools import ddp_check
+
+    results = ddp_check.run_graphed(1, scale=scale, size=HW, frames=S, timing=0,
+                                    timeout=600)
+    print(ddp_check.summary_graphed(results))
+    ddp_check.verify_graphed(results)
+    assert results[0]["backend"] == "nccl" and results[0]["device"] == "cuda:0"
+    assert [c["lockstep"]["graphed_launches"] for c in results[0]["cases"].values()] == \
+        [2 * 8, 4 * 3, 2 * 3, 2 * 3]

@@ -2,7 +2,9 @@
 data.loader, utils.checkpoint, utils.logging, config, the training-state
 half of convert) on the CPU, at the scale-4 model and 64x64 crops: stage 2
 and 3 freezing, resuming from a checkpoint, stage chaining, the trimap
-step, and the pieces shared with the JAX package held to its own."""
+step, and the pieces shared with the JAX package held to its own.  Stage
+2 and 3 freezing (7 steps each) is in test_torch_trainer_frozen.py, a file
+the suite's workers take beside this one."""
 import dataclasses
 import logging
 
@@ -25,6 +27,8 @@ from otvm_tpu_torch.train import trainer as T
 from otvm_tpu_torch.train.optim import RAdam
 from otvm_tpu_torch.utils import checkpoint as ckpt
 from otvm_tpu_torch.utils.logging import AverageMeter, StepTimer, create_logger
+# one torch thread a module (the CPU's conv weight gradients repeat bit for bit)
+from tests.torch_port import one_thread  # noqa: F401
 
 HW, SCALE = 64, 4
 
@@ -66,34 +70,6 @@ def test_stage_masks_match_jax_and_pick_the_optimizer_params():
         for top, net in (("stm", state.stm), ("fba", state.fba)):
             assert all((id(p) in held) == want[top] == p.requires_grad
                        for p in net.parameters()), (stage, top)
-
-
-@pytest.mark.parametrize("stage,frozen", [(2, "stm"), (3, "fba")])
-def test_frozen_half_stays_bit_identical(stage, frozen):
-    """Steps 1-5 move nothing (RAdam's N_sma < 5); from step 6 the trained
-    half moves and the frozen half stays bit for bit."""
-    state = T.init_train_state(_cfg(stage), seed=1, device="cpu")
-    step = T.make_train_step(_cfg(stage))
-    before = {name: _snapshot(getattr(state, name)) for name in ("stm", "fba")}
-    trained = "fba" if frozen == "stm" else "stm"
-    for i, batch in enumerate(_batches(7, seed=stage, s=2)):
-        state, metrics = step(state, batch)
-        assert all(torch.isfinite(v) for v in metrics.values())
-        assert _same(getattr(state, frozen), before[frozen])
-        assert _same(getattr(state, trained), before[trained]) == (i < 5), f"step {i + 1}"
-    assert state.step == 7
-    assert set(metrics) == {"loss", "L_alpha_comp", "L_lap", "L_grad", "L_tri"}
-
-
-@pytest.fixture
-def one_thread():
-    """One CPU thread: with several, the CPU backward's reductions (conv
-    weight gradients) split work by thread and two runs of one step may
-    differ in the last bit."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_checkpoint_resumes_at_the_saved_step(tmp_path, one_thread):

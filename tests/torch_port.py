@@ -106,12 +106,16 @@ def write_train_tree(root, h: int, w: int) -> str:
 # the port's training CLIs against the JAX package's, in one process
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
-    """One torch and one cv2 thread a test: the suite runs several test
+    """One torch and one cv2 thread for a module's tests and its fixtures
+    (autouse where a test module imports it): the suite runs several test
     processes at once, and each library's pool over every core would
     oversubscribe the host (every parallel region of the small models'
-    many small ops then waits for descheduled threads)."""
+    many small ops then waits for descheduled threads; on an 8-core host a
+    full-width chunk test took 134 s with torch's 8 threads beside 5 busy
+    processes, 33 s with one).  One thread also makes the CPU's reductions (conv weight
+    gradients) repeat bit for bit from run to run."""
     import cv2
 
     threads, cv_threads = torch.get_num_threads(), cv2.getNumThreads()
