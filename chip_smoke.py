@@ -137,7 +137,16 @@ Phases, in order; any failure exits non-zero:
      moments), the ranks bit-equal after every step, one capture a run, 2
      reads a step (4 with remat) counted at every replay; then the fp32
      step graphed and eager alone: ms a step, host ms, and NCCL's share of
-     a profiled replay.
+     a profiled replay;
+ 13. what training teaches, through otvm_tpu_torch/tools/quality_check.py
+     on phase 8's fixture (made again): dim_overfit (stage-1 alpha on the
+     8 DIM images, the trimap given) on the random weights that
+     `cli/train.py --stage 1 --stm-gn` starts from; that CLI's main,
+     graphed, on those images (QUALITY_STEPS bf16 steps at the recipe's
+     320x320, B 2); dim_overfit on its checkpoint, whose SAD must have
+     fallen by SAD_DROP; then onsynth on random stage-4 weights, eagerly,
+     its 3 x 11 reads (JFA fp32, exact EDT fp32, JFA bf16 over 12 frames)
+     each held to the plain read in lockstep.
 Phases 4-9 check every read of their fp32 paths in lockstep, so those paths
 run eagerly (graphs=False, the CLIs' --eager); the others, phase 5's
 timed bf16 stream (the main path) among them, are graphed.  The line before the last is a JSON
@@ -1252,6 +1261,79 @@ def ddp_graphs_phase(torch, ma, card):
     return out
 
 
+# phase 13: 8 DIM images x QUALITY_REPEATS / B 2 steps of stage 1
+QUALITY_REPEATS = 50
+QUALITY_STEPS = 8 * QUALITY_REPEATS // 2
+# dim_overfit's SAD must fall by at least this after those steps: two
+# runs on an H100 fell by 9.8997 and 9.8270 (15.92 -> 6.03 and 6.10;
+# PERF.md, the training chain's findings), so about half the smaller drop
+SAD_DROP = 5.0
+ONSYNTH_FRAMES = 12
+
+
+def quality_phase(torch, ma, card):
+    """Phase 13: dim_overfit before and after a short graphed stage-1
+    overfit through cli/train.py's main, then onsynth on random stage-4
+    weights with every read in lockstep (tools/quality_check.py)."""
+    import shutil
+    import tempfile
+
+    from otvm_tpu_torch.cli import train as cli_train
+    from otvm_tpu_torch.tools import quality_check as Q
+    from otvm_tpu_torch.tools.kernel_check import lockstep_check
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out, t13 = {}, time.perf_counter()
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        os.chdir(tmp)
+        subprocess.run([sys.executable, os.path.join(repo, "scripts", "make_synth_data.py"),
+                        "data"] + SYNTH_ARGS, check=True, capture_output=True, text=True,
+                       timeout=300)
+        stm_sd, fba_sd, fba1_sd = Q.random_weights()
+        before = Q.dim_overfit(fba1_sd, "data", "random")["dim_overfit_random"]
+        t = time.perf_counter()
+        reset_counts(torch, ma)
+        res = cli_train.main(["--stage", "1", "--data-root", "data", "--input-size", "320",
+                              "--bf16", "--epochs", "1", "--batch-size", "2", "--lr", "1e-4",
+                              "--workers", "8", "--stm-gn", "--repeats", str(QUALITY_REPEATS)])
+        train_s = time.perf_counter() - t
+        assert res["state"].step == QUALITY_STEPS, res["state"].step
+        assert np.isfinite(res["losses"]).all() and ma.launches == 0
+        del res
+        torch.cuda.empty_cache()
+        after = Q.dim_overfit(Q.load_weights("weights/s1_OTVM_alpha", 1)[1], "data",
+                              "post_overfit")["dim_overfit_post_overfit"]
+        drop = before["SAD"] - after["SAD"]
+        print(f"  dim_overfit over {before['images']} DIM images: SAD {before['SAD']:.4f} "
+              f"(random) -> {after['SAD']:.4f} after {QUALITY_STEPS} graphed stage-1 steps "
+              f"({train_s:.1f} s), drop {drop:.4f} (must be >= {SAD_DROP}); MSE "
+              f"{before['MSE']:.5f} -> {after['MSE']:.5f}")
+        out.update(dim_overfit_random=before, dim_overfit_post_overfit=after, sad_drop=drop,
+                   train_s=train_s, steps=QUALITY_STEPS)
+        assert drop >= SAD_DROP, f"dim_overfit's SAD fell by {drop}, not by {SAD_DROP}"
+
+        reset_counts(torch, ma)
+        with lockstep_check() as errs:
+            variants = Q.onsynth(stm_sd, fba_sd, "data", "random", max_frames=ONSYNTH_FRAMES,
+                                 graphs=False)["onsynth_variants_random"]
+        want = 3 * (ONSYNTH_FRAMES - 1)
+        print(f"  onsynth on random stage-4 weights, {variants['frames']} frames three ways: "
+              f"memory_read {ma.launches} launches, merged in a cluster / through L2 "
+              f"{merges(ma)}, every read vs plain: rel err <= {max(errs):.3e}; "
+              f"{json.dumps(variants)}")
+        assert ma.launches == len(errs) == want, f"{ma.launches} reads, want {want}"
+        assert all(np.isfinite(v) for d in (variants["sad"], variants["mse"]) for v in d.values())
+        out.update(onsynth_random=variants, onsynth_launches=ma.launches,
+                   onsynth_merges=merges(ma), onsynth_read_err=max(errs))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t13
+    print(f"  phase 13 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def make_video(n, seed=0):
     """Smooth seeded frames (a coarse random grid, bilinearly upsampled,
     new per frame) and the bench's nested-box first trimap."""
@@ -1447,6 +1529,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ddp_graphed = ddp_graphs_phase(torch, ma, card)
 
+    print("phase 13: what training teaches: dim_overfit and onsynth")
+    torch.cuda.empty_cache()
+    quality = quality_phase(torch, ma, card)
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the graphed bf16 stream's launches (replays counted); every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -1482,6 +1568,7 @@ def main() -> int:
          "entry_points": entry,
          "data_parallel": ddp,
          "data_parallel_graphs": ddp_graphed,
+         "quality": quality,
          "l2_merge_beside_held_sms": held,
          "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)

@@ -39,8 +39,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import math
 import os
 from typing import Dict, Optional, Sequence
+
+import torch
 
 from ..config import Config, get_cfg_defaults, get_model_name
 from ..convert import load_pth
@@ -149,6 +152,42 @@ def apply_overrides(cfg: Config, args: argparse.Namespace) -> None:
         cfg.stm_norm = "gn"
 
 
+def training_set(cfg: Config):
+    """The stage's training data: VM108 clips at stage 4, DIM composites
+    before (the trimap-s1 pretrain's too)."""
+    hw = cfg.train.train_input_size
+    if cfg.train.stage == 4:
+        return VM108Train(cfg.dataset.path, hw, cfg.train.frame_num)
+    return DIMTrain.from_adobe_layout(cfg.dataset.path, image_shape=hw,
+                                      sample_length=cfg.train.frame_num)
+
+
+def epoch_loader(cfg: Config, dataset, epoch: int, repeats: int, batch_size: int) -> Loader:
+    """This rank's batches of `epoch`, each epoch's order and augmentations
+    from cfg.system.random_seed (stage 4 with that epoch's max_skip)."""
+    if cfg.train.stage == 4:
+        dataset.max_skip = vm108_max_skip_for_epoch(epoch, cfg.train.total_epochs)
+    idx = epoch_indices(len(dataset), epoch, repeats, cfg.system.random_seed,
+                        D.process_index(), D.process_count())
+    return Loader(dataset, idx, batch_size, seed=cfg.system.random_seed + epoch,
+                  num_threads=cfg.system.num_workers)
+
+
+def stop_if_not_finite(value: float, window, epoch: int, i: int, logger) -> None:
+    """Raises FloatingPointError, and logs it, where a logged loss (the
+    ranks' mean over the steps since the last line) is not finite; names
+    the first step of this rank's `window` (its losses, one 0-d tensor a
+    step, through step i) whose own loss is not finite."""
+    if math.isfinite(value):
+        return
+    bad = (~torch.isfinite(torch.stack(window))).nonzero()
+    first = (f"E{epoch} I{i - len(window) + 1 + int(bad[0])}" if len(bad)
+             else "on another rank")
+    msg = f"E{epoch} I{i}: the logged loss is {value}; the first non-finite step: {first}"
+    logger.error(msg)
+    raise FloatingPointError(msg)
+
+
 def resume(path: Optional[str], state, iters_per_epoch: int, total_epochs: int, logger) -> int:
     """restore_train_state from `path` where it exists; returns the epoch to
     start at, from the restored step (the reference has no resume:
@@ -166,7 +205,9 @@ def resume(path: Optional[str], state, iters_per_epoch: int, total_epochs: int, 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Trains; returns {'state': the TrainState, 'losses': the logged
-    losses, 'start_epoch', 'run_dir'}."""
+    losses (each line's step), 'averages' (their running averages),
+    'steps' (the step count at each line), 'start_epoch', 'run_dir'}.
+    A logged loss that is not finite stops the run (FloatingPointError)."""
     args = parse_args(argv)
     device = D.init_distributed(args.device)
     rank, group = D.process_index(), D.data_group()
@@ -186,12 +227,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         with open(os.path.join(run_dir, "config.yaml"), "w") as f:   # train.py:76-77
             yaml.safe_dump(dataclasses.asdict(cfg), f)
 
-    hw = cfg.train.train_input_size
-    if args.stage == 4:
-        dataset = VM108Train(cfg.dataset.path, hw, cfg.train.frame_num)
-    else:
-        dataset = DIMTrain.from_adobe_layout(cfg.dataset.path, image_shape=hw,
-                                             sample_length=cfg.train.frame_num)
+    dataset = training_set(cfg)
     iters_per_epoch = max(len(dataset) * args.repeats // cfg.train.batch_size, 1)
 
     # a fresh optimizer: loading weights in place keeps its parameters
@@ -216,20 +252,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     train_step = make_train_step(cfg, graphs=False if args.eager else None)
     logger.info(f"train step: {step_mode(args, state)}")
     viz_forward = None
-    loss_meter, timer, losses = AverageMeter(), StepTimer(), []
+    loss_meter, timer, losses, averages, steps = AverageMeter(), StepTimer(), [], [], []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs
     image_freq = cfg.train.image_freq if cfg.train.image_freq > 0 else None
     for epoch in range(start_epoch, total_epochs):
-        if args.stage == 4:
-            dataset.max_skip = vm108_max_skip_for_epoch(epoch, cfg.train.total_epochs)
-        idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed,
-                            rank, D.process_count())
-        loader = Loader(dataset, idx, batch_size, seed=cfg.system.random_seed + epoch,
-                        num_threads=cfg.system.num_workers)
+        loader = epoch_loader(cfg, dataset, epoch, args.repeats, batch_size)
         # the loss stays on the device between log lines: one sync (and one
         # collective) per 50 steps (the reference syncs at PRINT_FREQ,
-        # train.py:379-386)
-        loss_acc, n_acc = None, 0
+        # train.py:379-386); `window` keeps each step's, for the first
+        # non-finite one
+        loss_acc, n_acc, window = None, 0, []
         for i, batch in enumerate(loader):
             if cfg.system.testmode and i > 20:
                 break
@@ -237,6 +269,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             state, metrics = train_step(state, wire)
             loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
             n_acc += 1
+            window.append(metrics["loss"].detach().clone())
             if image_freq and i % image_freq == 0 and rank == 0:
                 viz_forward = viz_forward or make_viz_forward(cfg)
                 save_train_grid(os.path.join(run_dir, "images", f"e{epoch}_i{i}.jpg"), batch,
@@ -246,9 +279,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 names = ("loss", "L_alpha_comp", "L_lap", "L_grad", "L_tri")
                 loss, *comps, acc = (x.item() for x in D.all_reduce_mean(
                     [metrics[k] for k in names] + [loss_acc / n_acc], group))
+                stop_if_not_finite(acc, window, epoch, i, logger)
                 losses.append(loss)
                 loss_meter.update(acc, n_acc)
-                loss_acc, n_acc = None, 0
+                averages.append(loss_meter.avg)
+                steps.append(state.step)
+                loss_acc, n_acc, window = None, 0, []
                 comps = " ".join(f"{k}={v:.4f}" for k, v in zip(names[1:], comps))
                 logger.info(f"E{epoch} I{i} loss {loss:.4f} ({loss_meter.avg:.4f}) {comps} "
                             f"{dt * 1000:.0f} ms/it")
@@ -257,7 +293,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             save_train_state(os.path.join(run_dir, f"ckpt_e{epoch + 1}"), state)
             save_train_state(os.path.join("weights", model_name), state)
             logger.info(f"saved checkpoint at epoch {epoch + 1}")
-    return dict(state=state, losses=losses, start_epoch=start_epoch, run_dir=run_dir)
+    return dict(state=state, losses=losses, averages=averages, steps=steps,
+                start_epoch=start_epoch, run_dir=run_dir)
 
 
 if __name__ == "__main__":

@@ -23,14 +23,14 @@ from typing import Dict, Optional, Sequence
 
 from ..config import get_cfg_defaults
 from ..convert import load_pth
-from ..data.datasets import DIMTrain
 from ..data.loader import Loader, encode_wire, epoch_indices
 from ..eval.metrics import reference_iou
 from ..parallel import dist as D
 from ..train.trainer import init_train_state, make_trimap_s1_train_step
 from ..utils.checkpoint import save_train_state
 from ..utils.logging import AverageMeter
-from .train import apply_overrides, per_rank_batch, rank_logger, resume, step_mode
+from .train import (apply_overrides, per_rank_batch, rank_logger, resume, step_mode,
+                    stop_if_not_finite, training_set)
 
 MODEL_NAME = "s1_OTVM_trimap"
 
@@ -69,7 +69,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Trains; returns {'state', 'losses', 'ious' (the logged values),
-    'start_epoch', 'run_dir'}."""
+    'averages' (the losses' running averages), 'steps' (the step count at
+    each line), 'start_epoch', 'run_dir'}.  A logged loss that is not
+    finite stops the run (FloatingPointError)."""
     args = parse_args(argv)
     if args.init and not args.init.endswith(".pth"):
         # the JAX CLI reads only a .pth here, and passes over any other path
@@ -82,8 +84,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     batch_size = per_rank_batch(cfg)
     logger, run_dir = rank_logger(cfg.system.outdir, MODEL_NAME)
 
-    dataset = DIMTrain.from_adobe_layout(cfg.dataset.path, image_shape=cfg.train.train_input_size,
-                                         sample_length=cfg.train.frame_num)
+    dataset = training_set(cfg)
     iters_per_epoch = max(len(dataset) * args.repeats // cfg.train.batch_size, 1)
     state = init_train_state(cfg, cfg.system.random_seed, iters_per_epoch, device=device,
                              group=group)
@@ -94,15 +95,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     train_step = make_trimap_s1_train_step(cfg, graphs=False if args.eager else None)
     logger.info(f"train step: {step_mode(args, state)}")
     meter, iou_meter = AverageMeter(), AverageMeter()
-    losses, ious = [], []
+    losses, ious, averages, steps = [], [], [], []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs
     for epoch in range(start_epoch, total_epochs):
         idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed,
                             rank, D.process_count())
         loader = Loader(dataset, idx, batch_size, seed=cfg.system.random_seed + epoch,
                         num_threads=cfg.system.num_workers)
-        # the loss stays on the device between log lines (one sync per 50 steps)
-        loss_acc, n_acc = None, 0
+        # the loss stays on the device between log lines (one sync per 50
+        # steps); `window` keeps each step's, for the first non-finite one
+        loss_acc, n_acc, window = None, 0, []
         for i, sample in enumerate(loader):
             if cfg.system.testmode and i > 20:
                 break
@@ -112,10 +114,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             state, metrics = train_step(state, batch)
             loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
             n_acc += 1
+            window.append(metrics["loss"].detach().clone())
             if i % 50 == 0:
-                meter.update(D.all_reduce_mean([loss_acc / n_acc], group)[0].item(), n_acc)
+                loss = D.all_reduce_mean([loss_acc / n_acc], group)[0].item()
+                stop_if_not_finite(loss, window, epoch, i, logger)
+                meter.update(loss, n_acc)
                 losses.append(meter.val)
-                loss_acc, n_acc = None, 0
+                averages.append(meter.avg)
+                steps.append(state.step)
+                loss_acc, n_acc, window = None, 0, []
                 # frame 0 is the GT trimap: only the propagated frames score
                 # (train_s1_trimap.py:287-303)
                 iou_meter.update(reference_iou(metrics["pred_lab"][:, 1:].cpu().numpy(),
@@ -125,7 +132,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                             f"IoU {iou_meter.val:.2f} ({iou_meter.avg:.2f})")
         if rank == 0:
             save_train_state(os.path.join("weights", MODEL_NAME), state)
-    return dict(state=state, losses=losses, ious=ious, start_epoch=start_epoch, run_dir=run_dir)
+    return dict(state=state, losses=losses, ious=ious, averages=averages, steps=steps,
+                start_epoch=start_epoch, run_dir=run_dir)
 
 
 if __name__ == "__main__":

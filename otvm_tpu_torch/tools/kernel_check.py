@@ -10,6 +10,7 @@ timers of chip_smoke.py and tools/bench_memory_read.py.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 
@@ -54,10 +55,11 @@ def plain_read_grads(q_k, m_k, m_v, slot_mask, g):
 
 
 @contextlib.contextmanager
-def lockstep_check(dtype: torch.dtype):
+def lockstep_check(dtype: Optional[torch.dtype] = None):
     """While active, every launch of the read kernel (memory_read_cuda) is
     also computed by the plain version on the same inputs and held to
-    READ_TOL[dtype]; yields the list of norm-relative errors per read.  The
+    READ_TOL[dtype] (dtype None: each read to its own dtype's); yields the
+    list of norm-relative errors per read.  The
     plain calls launch no kernel.  The host compares each read as it
     returns, which no CUDA graph can do: a read captured while the check
     is active raises, and so does a graph replay (models/graphs.py), so
@@ -66,9 +68,9 @@ def lockstep_check(dtype: torch.dtype):
     from ..kernels import memory_attn as ma
 
     launch, errs = ma.memory_read_cuda, []
-    tol = READ_TOL[dtype]
 
     def checked(q, k, v, mask):
+        tol = READ_TOL[dtype or q.dtype]
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("lockstep_check holds each read to the plain read on the host, "
                                "which a CUDA-graph capture cannot: run the path eagerly "

@@ -108,7 +108,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "data/datasets.py", "data/trimap.py", "data/loader.py", "eval/metrics.py",
             "utils/viz.py", "parallel/dist.py", "entry.py", "tools/ddp_check.py",
             "tools/multistream_bench.py", "models/graphs.py", "bench.py", "train/graphs.py",
-            "tools/train_graphs_check.py"} <= names
+            "tools/train_graphs_check.py", "tools/quality_check.py",
+            "tools/train_chain.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -23,8 +23,9 @@ jax.grad's.
     trimap labels agree.  The distance features come from the port's own
     JFA, bit-exact with JAX's on such maps (tests/test_torch_edt.py).
   * Gradients, norm-relative per top-level module (the JAX params tree's
-    first level): GRAD_TOL, at one torch thread (the module's pin) and at 8.  Both frameworks' fp32 gradients lie 2e-4..3e-3
-    from the port's own fp64 gradient at stage 4 (the GroupNorms of the
+    first level): GRAD_TOL, at one torch thread (the module's pin) and at
+    8.  Both frameworks' fp32 gradients lie 2e-4..3e-3 from the port's
+    own fp64 gradient at stage 4 (the GroupNorms of the
     scale-4 model's pyramid pooling see two channels at one pixel and are
     ill-conditioned), so they differ by that much from each other.  A read
     whose backward returns zero (the CUDA read's fault before it had an
@@ -34,9 +35,10 @@ jax.grad's.
     pixel's whole gradient or none, by rounding.  Stage 2's first batch
     (seed 12) had one such pixel, its fused alpha 2.0e-5 above 0 in fp64:
     one torch thread clamped it and 8 did not, and that one pixel moved
-    fba/encoder's gradient by 4.8% against JAX's.  Each stage's batch seed
-    (BATCH_SEEDS) leaves every clamp and trimap label of the fp32 run on
-    the side the fp64 run takes, at 1 and 8 threads (check_no_ties).
+    fba/encoder's gradient by 4.8% against JAX's.  Stages 1 and 2's
+    batches (BATCH_SEEDS) leave every clamp and trimap label of the fp32
+    run on the side the fp64 run takes, at 1 and 8 threads (check_no_ties,
+    asserted before their gradient checks).
 """
 import copy
 
