@@ -41,7 +41,8 @@ import dataclasses
 import logging
 import math
 import os
-from typing import Dict, Optional, Sequence
+import time
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -173,6 +174,23 @@ def epoch_loader(cfg: Config, dataset, epoch: int, repeats: int, batch_size: int
                   num_threads=cfg.system.num_workers)
 
 
+def timed_batches(loader: Loader, waits: List[float]) -> Iterator[Dict]:
+    """`loader`'s batches; appends to `waits` the seconds each one took to
+    come (the loop's wait on the Loader)."""
+    batches = iter(loader)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield batch
+    finally:
+        batches.close()
+
+
 def stop_if_not_finite(value: float, window, epoch: int, i: int, logger) -> None:
     """Raises FloatingPointError, and logs it, where a logged loss (the
     ranks' mean over the steps since the last line) is not finite; names
@@ -206,8 +224,8 @@ def resume(path: Optional[str], state, iters_per_epoch: int, total_epochs: int, 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Trains; returns {'state': the TrainState, 'losses': the logged
     losses (each line's step), 'averages' (their running averages),
-    'steps' (the step count at each line), 'start_epoch', 'run_dir'}.
-    A logged loss that is not finite stops the run (FloatingPointError)."""
+    'steps' (the step count at each line), 'loader_wait_s' (the loop's
+    wait on its batches), 'start_epoch', 'run_dir'}.  A logged loss that is not finite stops the run (FloatingPointError)."""
     args = parse_args(argv)
     device = D.init_distributed(args.device)
     rank, group = D.process_index(), D.data_group()
@@ -253,6 +271,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     logger.info(f"train step: {step_mode(args, state)}")
     viz_forward = None
     loss_meter, timer, losses, averages, steps = AverageMeter(), StepTimer(), [], [], []
+    waits = []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs
     image_freq = cfg.train.image_freq if cfg.train.image_freq > 0 else None
     for epoch in range(start_epoch, total_epochs):
@@ -262,14 +281,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         # train.py:379-386); `window` keeps each step's, for the first
         # non-finite one
         loss_acc, n_acc, window = None, 0, []
-        for i, batch in enumerate(loader):
+        for i, batch in enumerate(timed_batches(loader, waits)):
             if cfg.system.testmode and i > 20:
                 break
             wire = encode_wire(batch)
             state, metrics = train_step(state, wire)
             loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
             n_acc += 1
-            window.append(metrics["loss"].detach().clone())
+            window.append(metrics["loss"])
             if image_freq and i % image_freq == 0 and rank == 0:
                 viz_forward = viz_forward or make_viz_forward(cfg)
                 save_train_grid(os.path.join(run_dir, "images", f"e{epoch}_i{i}.jpg"), batch,
@@ -294,7 +313,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             save_train_state(os.path.join("weights", model_name), state)
             logger.info(f"saved checkpoint at epoch {epoch + 1}")
     return dict(state=state, losses=losses, averages=averages, steps=steps,
-                start_epoch=start_epoch, run_dir=run_dir)
+                loader_wait_s=sum(waits), start_epoch=start_epoch, run_dir=run_dir)
 
 
 if __name__ == "__main__":

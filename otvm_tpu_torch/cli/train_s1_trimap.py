@@ -23,14 +23,14 @@ from typing import Dict, Optional, Sequence
 
 from ..config import get_cfg_defaults
 from ..convert import load_pth
-from ..data.loader import Loader, encode_wire, epoch_indices
+from ..data.loader import encode_wire
 from ..eval.metrics import reference_iou
 from ..parallel import dist as D
 from ..train.trainer import init_train_state, make_trimap_s1_train_step
 from ..utils.checkpoint import save_train_state
 from ..utils.logging import AverageMeter
-from .train import (apply_overrides, per_rank_batch, rank_logger, resume, step_mode,
-                    stop_if_not_finite, training_set)
+from .train import (apply_overrides, epoch_loader, per_rank_batch, rank_logger, resume,
+                    step_mode, stop_if_not_finite, timed_batches, training_set)
 
 MODEL_NAME = "s1_OTVM_trimap"
 
@@ -70,7 +70,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Trains; returns {'state', 'losses', 'ious' (the logged values),
     'averages' (the losses' running averages), 'steps' (the step count at
-    each line), 'start_epoch', 'run_dir'}.  A logged loss that is not
+    each line), 'loader_wait_s' (the loop's wait on its batches),
+    'start_epoch', 'run_dir'}.  A logged loss that is not
     finite stops the run (FloatingPointError)."""
     args = parse_args(argv)
     if args.init and not args.init.endswith(".pth"):
@@ -95,17 +96,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     train_step = make_trimap_s1_train_step(cfg, graphs=False if args.eager else None)
     logger.info(f"train step: {step_mode(args, state)}")
     meter, iou_meter = AverageMeter(), AverageMeter()
-    losses, ious, averages, steps = [], [], [], []
+    losses, ious, averages, steps, waits = [], [], [], [], []
     total_epochs = 1 if cfg.system.testmode else cfg.train.total_epochs
     for epoch in range(start_epoch, total_epochs):
-        idx = epoch_indices(len(dataset), epoch, args.repeats, cfg.system.random_seed,
-                            rank, D.process_count())
-        loader = Loader(dataset, idx, batch_size, seed=cfg.system.random_seed + epoch,
-                        num_threads=cfg.system.num_workers)
+        loader = epoch_loader(cfg, dataset, epoch, args.repeats, batch_size)
         # the loss stays on the device between log lines (one sync per 50
         # steps); `window` keeps each step's, for the first non-finite one
         loss_acc, n_acc, window = None, 0, []
-        for i, sample in enumerate(loader):
+        for i, sample in enumerate(timed_batches(loader, waits)):
             if cfg.system.testmode and i > 20:
                 break
             if args.max_iters and i >= args.max_iters:
@@ -114,7 +112,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             state, metrics = train_step(state, batch)
             loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
             n_acc += 1
-            window.append(metrics["loss"].detach().clone())
+            window.append(metrics["loss"])
             if i % 50 == 0:
                 loss = D.all_reduce_mean([loss_acc / n_acc], group)[0].item()
                 stop_if_not_finite(loss, window, epoch, i, logger)
@@ -133,7 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         if rank == 0:
             save_train_state(os.path.join("weights", MODEL_NAME), state)
     return dict(state=state, losses=losses, ious=ious, averages=averages, steps=steps,
-                start_epoch=start_epoch, run_dir=run_dir)
+                loader_wait_s=sum(waits), start_epoch=start_epoch, run_dir=run_dir)
 
 
 if __name__ == "__main__":

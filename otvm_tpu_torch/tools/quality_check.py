@@ -8,7 +8,7 @@ gate of scripts/s1t_gate.py.
         [--trained] [--onsynth] [--weights weights/s4_OTVM]
         [--dim-overfit] [--dim-weights weights/s1_OTVM_alpha]
         [--random] [--gate train_log/s1_OTVM_trimap [--min-gain 5]]
-        [--tag TAG] [--device cuda|cpu] [--eager]
+        [--device cuda|cpu]
 
 Sections, each a function of state_dicts and arrays that returns its
 report entries (keys as the JAX script names them, `_<tag>` appended):
@@ -27,7 +27,7 @@ report entries (keys as the JAX script names them, `_<tag>` appended):
 Weights go through cli/eval.py load_weights, which picks the GN STM trunk
 for a checkpoint without BN running statistics.  The report is one JSON
 file: an existing one is updated.  Runs on CUDA (the streams from CUDA
-graphs; --eager steps eagerly) unless --device cpu; a section that fails
+graphs; onsynth's graphs=False steps eagerly) unless --device cpu; a section that fails
 raises, and a failed gate exits 1 (2 with too few log points).
 """
 from __future__ import annotations
@@ -64,11 +64,10 @@ def _key(name: str, tag: str) -> str:
 
 
 def trained(trimap_sd: StateDict, alpha_sd: StateDict, synth_root: str, tag: str = "",
-            scale: int = 1, device=None, graphs: Optional[bool] = None) -> Dict:
+            scale: int = 1, device=None) -> Dict:
     """The VM108 protocol on the fixture's val clips (stage 4, medium
     trimaps): each metric's mean over clips, fps and videos."""
-    ev = StreamingEvaluator(trimap_sd, alpha_sd, EvalProtocol(scale=scale), device=device,
-                            graphs=graphs)
+    ev = StreamingEvaluator(trimap_sd, alpha_sd, EvalProtocol(scale=scale), device=device)
     res = evaluate_vm108(ev, synth_root, mode="val")
     return {_key("trained_vm108_synth", tag): {k: float(v) for k, v in res.items()}}
 
@@ -191,12 +190,11 @@ def random_weights(seed: int = RANDOM_SEED, scale: int = 1, stm_norm: str = "gn"
     return stm.state_dict(), fba.state_dict(), fba1.state_dict()
 
 
-def random_baseline(synth_root: str, seed: int = RANDOM_SEED, scale: int = 1, device=None,
-                    graphs: Optional[bool] = None) -> Dict:
+def random_baseline(synth_root: str, seed: int = RANDOM_SEED, scale: int = 1,
+                    device=None) -> Dict:
     """trained and dim_overfit on random weights, tagged 'random'."""
     stm_sd, fba_sd, fba1_sd = random_weights(seed, scale)
-    return {**trained(stm_sd, fba_sd, synth_root, "random", scale=scale, device=device,
-                      graphs=graphs),
+    return {**trained(stm_sd, fba_sd, synth_root, "random", scale=scale, device=device),
             **dim_overfit(fba1_sd, synth_root, "random", scale=scale, device=device)}
 
 
@@ -247,10 +245,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--gate", default=None, metavar="RUN_DIR",
                    help="the trimap-s1 run directory (train_log/s1_OTVM_trimap)")
     p.add_argument("--min-gain", type=float, default=5.0)
-    p.add_argument("--tag", default="")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--eager", action="store_true",
-                   help="step the streams eagerly, not from CUDA graphs")
     return p.parse_args(argv)
 
 
@@ -260,7 +255,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     written."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    graphs = False if args.eager else None
     report = {}
     if os.path.exists(args.out):
         with open(args.out) as f:
@@ -275,20 +269,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     verdict = None
     if args.gate:
-        entries = gate(args.gate, args.min_gain, args.tag)
+        entries = gate(args.gate, args.min_gain)
         add(entries)
         verdict = next(iter(entries.values()))["verdict"]
     if args.trained or args.onsynth:
         stm_sd, fba_sd = load_weights(args.weights, 4)
         if args.trained:
-            add(trained(stm_sd, fba_sd, args.synth, args.tag, device=device, graphs=graphs))
+            add(trained(stm_sd, fba_sd, args.synth, device=device))
         if args.onsynth:
-            add(onsynth(stm_sd, fba_sd, args.synth, args.tag, device=device, graphs=graphs))
+            add(onsynth(stm_sd, fba_sd, args.synth, device=device))
     if args.dim_overfit:
-        add(dim_overfit(load_weights(args.dim_weights, 1)[1], args.synth, args.tag,
-                        device=device))
+        add(dim_overfit(load_weights(args.dim_weights, 1)[1], args.synth, device=device))
     if args.random:
-        add(random_baseline(args.synth, device=device, graphs=graphs))
+        add(random_baseline(args.synth, device=device))
     print(f"wrote {args.out}")
     if verdict in ("fail", "too few"):
         raise SystemExit(1 if verdict == "fail" else 2)

@@ -22,18 +22,24 @@ checkpoint every epoch, --resume of the stage's own checkpoint, which a
 fresh stage does not have yet), and so replays its step from a CUDA graph
 on CUDA.  A finished stage leaves train_log/chain/<stage>.done and is
 skipped when the chain is run again; an unfinished one resumes from its
-last epoch's checkpoint, and its first logged loss is held against the
-loss an eager step gives from that checkpoint on the same batch.  A
-section already in the report is not run again.  --repeats and --epochs
-scale the chain, and the report lists what was cut.  --crash-test kills
-a first run of the chain in stage 1 and resumes it.
+last epoch's checkpoint (`resume_check`): its first logged loss must
+equal, bit for bit, the loss an eager step gives from that checkpoint on
+the same batch, and on CUDA the graphed step from that checkpoint (eager
+first, then captured, then replayed) must equal the eager step over
+REPLAY_STEPS of the epoch's batches under torch's deterministic
+algorithms (tools/train_graphs_check.py lockstep); else the chain stops
+before the stage's .done.  A section already in the report is not run
+again.  --repeats and --epochs scale the chain, and the report lists what
+was cut.  To check a resume, kill a first run after a checkpoint and run
+the chain again.
 
 Per stage the report holds the steps, the wall seconds and ms a step,
-the graphed step alone at the stage's shape (CUDA events, the median of
-TIMED_STEPS after a warm-up, from a fresh state on seeded batches) and
-the wall's ratio to it (above 1: the loop's wait on the Loader and the
-host), the logged losses with their running averages and steps, and the
-head and tail means of the losses (the gate's fifths).  A non-finite
+the loop's wait on its batches (the CLI's loader_wait_s), the graphed
+step alone at the stage's shape (CUDA events, the median of TIMED_STEPS
+after a warm-up, from a fresh state on seeded batches) and the wall's
+ratio to it, the Loader alone (ms a batch over TIMED_BATCHES of epoch 0,
+no step), the logged losses with their running averages and steps, and
+the head and tail means of the losses (the gate's fifths).  A non-finite
 loss stops the stage at its log line, naming the first such step.
 Needs a CUDA card unless --device cpu.
 """
@@ -43,8 +49,8 @@ import argparse
 import dataclasses
 import gc
 import json
+import itertools
 import os
-import signal
 import subprocess
 import sys
 import time
@@ -55,9 +61,12 @@ import torch
 
 from .. import resolve_device
 from . import quality_check as Q
+from . import train_graphs_check as G
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 TIMED_STEPS = 10
+TIMED_BATCHES = 50
+REPLAY_STEPS = 3        # the resume check's graphed steps: eager, captured, replayed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,29 +126,53 @@ def _step_factory(stage: Stage, cfg, graphs: Optional[bool]):
     return make_train_step(cfg, graphs=graphs)
 
 
-def resumed_loss(stage: Stage, argv: Sequence[str], device) -> Optional[float]:
-    """The loss of one eager step from the stage's checkpoint on the first
-    batch of the epoch it resumes at: what the resumed run's first logged
-    loss must be.  None if that epoch is past the last."""
+class _Restored:
+    """train_graphs_check.lockstep's networks: the stage's checkpoint,
+    restored into a fresh state at each run."""
+    group = None
+
+    def __init__(self, path: str, iters: int, device):
+        self.path, self.iters, self.device = path, iters, device
+
+    def fresh(self, cfg, optimizer):
+        from ..train.trainer import init_train_state
+        from ..utils.checkpoint import restore_train_state
+
+        return restore_train_state(self.path, init_train_state(
+            cfg, cfg.system.random_seed, self.iters, device=self.device))
+
+
+def resume_check(stage: Stage, argv: Sequence[str], device) -> Optional[Dict]:
+    """What the stage's run must give when it resumes from its checkpoint,
+    on the first batches of the epoch it resumes at: `eager_loss`, the
+    loss of one eager step (the run's first logged loss); on CUDA
+    `replay`, the losses of REPLAY_STEPS graphed steps from the
+    checkpoint, and `failures`, where those parted from the eager steps
+    from the same states under torch's deterministic algorithms (loss,
+    gradients, update, moments).  None if that epoch is past the last."""
     from ..cli import train as T
     from ..data.loader import encode_wire
-    from ..train.trainer import init_train_state
-    from ..utils.checkpoint import restore_train_state
 
     cfg, args = stage_config(stage, argv)
     dataset = T.training_set(cfg)
     iters = max(len(dataset) * args.repeats // cfg.train.batch_size, 1)
-    state = restore_train_state(stage.weights, init_train_state(cfg, cfg.system.random_seed,
-                                                                iters, device=device))
+    restored = _Restored(stage.weights, iters, device)
+    state = restored.fresh(cfg, None)
     epoch = state.step // iters
     if epoch >= cfg.train.total_epochs:
         return None
-    batch = next(iter(T.epoch_loader(cfg, dataset, epoch, args.repeats,
-                                     cfg.train.batch_size)))
-    if stage.cli == "train_s1_trimap":
-        batch = {k: batch[k] for k in ("fg", "bg", "alpha", "tri")}
-    _, metrics = _step_factory(stage, cfg, graphs=False)(state, encode_wire(batch))
-    return float(metrics["loss"].item())
+    keys = ("fg", "bg", "alpha", "tri") if stage.cli == "train_s1_trimap" else None
+    batches = [encode_wire({k: b[k] for k in keys or b}) for b in itertools.islice(
+        T.epoch_loader(cfg, dataset, epoch, args.repeats, cfg.train.batch_size), REPLAY_STEPS)]
+    _, metrics = _step_factory(stage, cfg, graphs=False)(state, batches[0])
+    out = dict(eager_loss=float(metrics["loss"].item()))
+    del state, metrics
+    if device.type == "cuda":
+        case = G.Case(stage.name, REPLAY_STEPS, stage=cfg.train.stage,
+                      trimap=stage.cli == "train_s1_trimap", bf16=cfg.train.bf16)
+        result = G.lockstep(case, cfg, restored, batches)
+        out.update(replay=[s["loss"] for s in result["steps"]], failures=G.verify(result))
+    return out
 
 
 def step_alone_ms(stage: Stage, argv: Sequence[str], device) -> float:
@@ -160,6 +193,22 @@ def step_alone_ms(stage: Stage, argv: Sequence[str], device) -> float:
     return float(np.median(times[2:]))
 
 
+def loader_alone_ms(stage: Stage, argv: Sequence[str]) -> float:
+    """The stage's Loader alone, with no step: ms a batch over TIMED_BATCHES
+    of epoch 0 after its first."""
+    from ..cli import train as T
+
+    cfg, args = stage_config(stage, argv)
+    loader = T.epoch_loader(cfg, T.training_set(cfg), 0, args.repeats, cfg.train.batch_size)
+    batches = iter(loader)
+    next(batches)
+    t0, n = time.perf_counter(), 0
+    for n, _ in enumerate(itertools.islice(batches, TIMED_BATCHES), 1):
+        pass
+    batches.close()
+    return 1e3 * (time.perf_counter() - t0) / max(n, 1)
+
+
 def _head_tail(values: Sequence[float]) -> Dict:
     if len(values) < 4:
         return {}
@@ -167,12 +216,18 @@ def _head_tail(values: Sequence[float]) -> Dict:
     return dict(head_mean=float(np.mean(values[:k])), tail_mean=float(np.mean(values[-k:])))
 
 
-def run_stage(stage: Stage, argv: List[str], device) -> Dict:
-    """One stage through its CLI; its record for the report."""
-    resumed = os.path.exists(stage.weights)
-    want = resumed_loss(stage, argv, device) if resumed else None
+def _free(device) -> None:
     gc.collect()
-    torch.cuda.empty_cache() if device.type == "cuda" else None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_stage(stage: Stage, argv: List[str], device) -> Dict:
+    """One stage through its CLI; its record for the report, whose
+    `failures` (a resume that parted from its checkpoint) stop the chain."""
+    resumed = os.path.exists(stage.weights)
+    check = resume_check(stage, argv, device) if resumed else None
+    _free(device)
     t0 = time.perf_counter()
     res = cli_main(stage.cli)(argv + ["--device", str(device)])
     wall = time.perf_counter() - t0
@@ -181,21 +236,25 @@ def run_stage(stage: Stage, argv: List[str], device) -> Dict:
     rec = dict(argv=argv, resumed=resumed, start_epoch=res["start_epoch"],
                final_step=res["state"].step, steps=steps, wall_s=wall,
                wall_ms_a_step=1e3 * wall / max(steps, 1),
+               loader_wait_s=res["loader_wait_s"],
+               loader_wait_ms_a_step=1e3 * res["loader_wait_s"] / max(steps, 1),
                losses=res["losses"], averages=res["averages"], logged_steps=res["steps"],
-               **_head_tail(res["losses"]))
+               failures=[], **_head_tail(res["losses"]))
     if "ious" in res:
         rec["ious"] = res["ious"]
-    if want is not None and res["losses"]:
-        rec["resume_check"] = dict(first_logged_loss=res["losses"][0], eager_from_ckpt=want,
-                                   rel_diff=abs(res["losses"][0] - want) / max(abs(want), 1e-12))
+    if check is not None and res["losses"]:
+        rec["resume_check"] = dict(first_logged_loss=res["losses"][0], **check)
+        rec["failures"] = list(check.get("failures", []))
+        if res["losses"][0] != check["eager_loss"]:
+            rec["failures"].append(f"the first logged loss {res['losses'][0]!r} is not the "
+                                   f"eager step's from the checkpoint, {check['eager_loss']!r}")
     del res
-    gc.collect()
+    _free(device)
     if device.type == "cuda":
-        torch.cuda.empty_cache()
         rec["step_alone_ms"] = step_alone_ms(stage, argv, device)
         rec["wall_over_step"] = rec["wall_ms_a_step"] / rec["step_alone_ms"]
-        gc.collect()
-        torch.cuda.empty_cache()
+        rec["loader_alone_ms_a_batch"] = loader_alone_ms(stage, argv)
+        _free(device)
     return rec
 
 
@@ -216,44 +275,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="epochs of s1t,s1,s2,s3,s4")
     p.add_argument("--workers", type=int, default=2, help="the Loader's threads")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--crash-test", type=float, default=None, metavar="SECONDS",
-                   help="run the chain in a child process, kill it (SIGKILL) SECONDS after "
-                        "stage 1's first epoch checkpoint, then run it again here: stage 1 "
-                        "resumes from that checkpoint")
     return p.parse_args(argv)
-
-
-def crash(argv: Sequence[str], root: str, seconds: float) -> Dict:
-    """The chain in a child process, killed `seconds` after stage 1's
-    first epoch checkpoint appears; (when, whether it was killed)."""
-    cmd = [sys.executable, "-m", "otvm_tpu_torch.tools.train_chain", *argv]
-    ckpt = os.path.join(root, "train_log", "s1_OTVM_alpha", "ckpt_e1")
-    t0, seen = time.perf_counter(), None
-    child = subprocess.Popen(cmd, cwd=os.getcwd())
-    while child.poll() is None:
-        time.sleep(1)
-        seen = seen or (time.perf_counter() if os.path.exists(ckpt) else None)
-        if seen and time.perf_counter() - seen >= seconds:
-            child.send_signal(signal.SIGKILL)
-            child.wait()
-            return dict(killed=True, at_s=time.perf_counter() - t0,
-                        after_ckpt_s=time.perf_counter() - seen)
-    return dict(killed=False, returncode=child.returncode)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Runs what is left of the chain; returns the report."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    crashed = None
-    if args.crash_test is not None:
-        rest = [a for a in (argv if argv is not None else sys.argv[1:])
-                if not a.startswith("--crash-test=")]
-        if "--crash-test" in rest:
-            i = rest.index("--crash-test")
-            del rest[i:i + 2]
-        crashed = crash(rest, args.root, args.crash_test)
-        print(f"[chain] crash test: {crashed}", flush=True)
+    if device.type == "cuda":   # the resume check's lockstep, before the first cuBLAS call
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", G.CUBLAS_DETERMINISTIC)
     epochs = [int(e) for e in args.epochs.split(",")]
     if len(epochs) != len(STAGES):
         raise ValueError(f"--epochs {args.epochs}: one count for each of {len(STAGES)} stages")
@@ -271,8 +301,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                                "--format=csv,noheader"], capture_output=True, text=True,
                               timeout=60).stdout.strip() if device.type == "cuda" else "cpu"
         report.setdefault("cards", []).append(card)
-        if crashed is not None:
-            report["crash_test"] = crashed
         report["reduced"] = {k: v for k, v in dict(
             repeats=None if args.repeats == 20 else f"{args.repeats} (r4: 20)",
             epochs=None if epochs == [s.epochs for s in STAGES]
@@ -305,9 +333,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 save()
                 print(f"[chain] {stage.name}: {rec['steps']} steps, {rec['wall_s']:.1f} s, "
                       f"{rec['wall_ms_a_step']:.1f} ms a step (alone "
-                      f"{rec.get('step_alone_ms', float('nan')):.1f}), losses "
+                      f"{rec.get('step_alone_ms', float('nan')):.1f}, waiting on the Loader "
+                      f"{rec['loader_wait_ms_a_step']:.1f}), losses "
                       f"{rec['losses'][:1]} .. {rec['losses'][-1:]}, running average "
-                      f"{rec['averages'][:1]} .. {rec['averages'][-1:]}", flush=True)
+                      f"{rec['averages'][:1]} .. {rec['averages'][-1:]}, resume check "
+                      f"{rec.get('resume_check')}", flush=True)
+                if rec["failures"]:
+                    raise RuntimeError(f"{stage.name} resumed wrongly: {rec['failures']}")
                 if stage.name == "s1t":
                     verdict = Q.gate(os.path.join("train_log", "s1_OTVM_trimap"))
                     report.update(verdict)

@@ -24,7 +24,9 @@ training chain (tools/train_chain.py) against the JAX package's, on the CPU.
   * The chain (no stage run: the CLIs' main and the sections stubbed):
     each stage's argv is train_chain_r4.sh's, .done markers skip stages,
     an unfinished stage resumes from its checkpoint, a failed gate stops
-    the chain.
+    the chain, and so does a resume whose first loss or replay parts from
+    the checkpoint's eager steps; the CLIs' clock of their wait on the
+    Loader.
 """
 import importlib.util
 import json
@@ -248,7 +250,7 @@ class _FakeCLIs:
             os.makedirs(os.path.dirname(weights), exist_ok=True)
             open(weights, "w").close()
             res = dict(state=types.SimpleNamespace(step=100), losses=[2.0, 1.0],
-                       averages=[2.0, 1.5], steps=[1, 51], start_epoch=0)
+                       averages=[2.0, 1.5], steps=[1, 51], loader_wait_s=0.5, start_epoch=0)
             return dict(res, ious=[20.0, 40.0]) if cli == "train_s1_trimap" else res
         return main
 
@@ -269,7 +271,7 @@ def _stub_sections(monkeypatch, gate_passes=True):
 def test_the_chain_runs_r4s_stages_skips_done_ones_and_resumes(tmp_path, monkeypatch):
     fake = _FakeCLIs()
     monkeypatch.setattr(C, "cli_main", fake)
-    monkeypatch.setattr(C, "resumed_loss", lambda stage, argv, device: 2.0)
+    monkeypatch.setattr(C, "resume_check", lambda stage, argv, device: dict(eager_loss=2.0))
     _stub_sections(monkeypatch)
     data = str(tmp_path / "data")
     root, args = str(tmp_path / "chain"), ["--data", data, "--device", "cpu"]
@@ -295,7 +297,8 @@ def test_the_chain_runs_r4s_stages_skips_done_ones_and_resumes(tmp_path, monkeyp
     argv = fake.calls[0][1]
     assert argv == r4["weights/s4_OTVM"] + ["--repeats", "5", "--device", "cpu"]
     last = report["stages"]["s4"][-1]
-    assert last["resumed"] and last["resume_check"]["rel_diff"] == 0.0
+    assert last["resumed"] and last["resume_check"] == dict(first_logged_loss=2.0, eager_loss=2.0)
+    assert last["failures"] == [] and last["loader_wait_ms_a_step"] == 5.0
     assert report["reduced"] == {"repeats": "5 (r4: 20)"}
 
 
@@ -333,35 +336,46 @@ def test_a_non_finite_loss_stops_a_run_at_its_first_step():
         stop_if_not_finite(float("inf"), window[:1], 2, 50, log)
 
 
-def test_the_crash_test_kills_a_first_run_then_runs_the_chain(tmp_path, monkeypatch):
-    import signal
-
-    root, children = str(tmp_path / "chain"), []
-
-    class Child:
-        """A first run that reaches stage 1's first checkpoint and goes on."""
-
-        def __init__(self, cmd, cwd):
-            self.cmd, self.signals = cmd, []
-            ckpt = os.path.join(root, "train_log", "s1_OTVM_alpha", "ckpt_e1")
-            os.makedirs(os.path.dirname(ckpt))
-            open(ckpt, "w").close()
-            children.append(self)
-
-        def poll(self):
-            return -9 if self.signals else None
-
-        def send_signal(self, sig):
-            self.signals.append(sig)
-
-        def wait(self):
-            return -9
-
-    monkeypatch.setattr(C.subprocess, "Popen", Child)
-    monkeypatch.setattr(C, "cli_main", _FakeCLIs())
+@pytest.mark.parametrize("check, why", [
+    (dict(eager_loss=2.5), "the first logged loss 2.0 is not the eager step's"),
+    (dict(eager_loss=2.0, replay=[2.0, 1.9, 1.8], failures=["loss of step 3: graphed differs"]),
+     "loss of step 3: graphed differs"),
+], ids=["first-loss", "replay"])
+def test_a_resume_that_parts_from_its_checkpoint_stops_the_chain(check, why, tmp_path,
+                                                                 monkeypatch):
+    fake = _FakeCLIs()
+    monkeypatch.setattr(C, "cli_main", fake)
+    monkeypatch.setattr(C, "resume_check", lambda stage, argv, device: check)
     _stub_sections(monkeypatch)
-    argv = ["--root", root, "--data", str(tmp_path / "data"), "--device", "cpu"]
-    report = C.main(argv + ["--crash-test", "0"])
-    assert len(children) == 1 and children[0].signals == [signal.SIGKILL]
-    assert children[0].cmd[1:] == ["-m", "otvm_tpu_torch.tools.train_chain"] + argv
-    assert report["crash_test"]["killed"] and set(report["stages"]) == {s.name for s in C.STAGES}
+    root = str(tmp_path / "chain")
+    weights = os.path.join(root, C.STAGES[1].weights)       # stage 1 left a checkpoint
+    os.makedirs(os.path.dirname(weights))
+    open(weights, "w").close()
+    with pytest.raises(RuntimeError, match=f"s1 resumed wrongly: .*{re.escape(why)}"):
+        C.main(["--root", root, "--data", str(tmp_path / "data"), "--device", "cpu"])
+    assert [cli for cli, _ in fake.calls] == ["train_s1_trimap", "train"]
+    assert sorted(os.listdir(os.path.join(root, "train_log", "chain"))) == ["s1t.done"]
+    with open(os.path.join(root, "chain_report.json")) as f:
+        rec = json.load(f)["stages"]["s1"][-1]
+    assert rec["resumed"] and why in rec["failures"][0]
+
+
+def test_timed_batches_clocks_each_wait_and_closes_the_loader():
+    from otvm_tpu_torch.cli.train import timed_batches
+
+    closed = []
+
+    def loader():
+        try:
+            yield from range(5)
+        finally:
+            closed.append(True)
+
+    waits = []
+    assert list(timed_batches(loader(), waits)) == list(range(5))
+    assert len(waits) == 5 and all(w >= 0 for w in waits) and closed == [True]
+    waits = []
+    for i in timed_batches(loader(), waits):
+        if i == 1:
+            break
+    assert len(waits) == 2 and closed == [True, True]

@@ -202,18 +202,22 @@ def check_joint_gradients(run, stage):
         assert all(not np.any(x) for x in jax.tree_util.tree_leaves(run["grads"]["stm"]))
 
 
-def _sides(x7, img):
-    """Which side of 0 and of 1 every clamped value of the FBA head takes
-    (models/fba.py _head and fba_fusion, the same arithmetic), NCHW."""
-    a = torch.clamp(x7[:, 0:1], 0, 1)
-    f, b = torch.sigmoid(x7[:, 1:4]), torch.sigmoid(x7[:, 4:7])
-    f2 = a * img + (1 - a ** 2) * f - a * (1 - a) * b
-    b2 = (1 - a) * img + (2 * a - a ** 2) * b - a * (1 - a) * f2     # reads the new F
-    f2c, b2c = torch.clamp(f2, 0, 1), torch.clamp(b2, 0, 1)
-    fused = (a * 0.1 + torch.sum((img - b2c) * (f2c - b2c), dim=1, keepdim=True)) / (
-        torch.sum((f2c - b2c) * (f2c - b2c), dim=1, keepdim=True) + 0.1)
-    vals = torch.cat([x7[:, 0:1], f2, b2, fused], dim=1)
-    return torch.cat([torch.sign(vals), torch.sign(vals - 1)], dim=1).to(torch.int8)
+class _ClampSides:
+    """models/fba.py's `torch` where each clamp also records which side of
+    0 and of 1 its input takes (in the FBA head: alpha, then fba_fusion's
+    F, B and fused alpha)."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def clamp(self, x, lo, hi):
+        v = x.detach()
+        self.seen.append(torch.cat([torch.sign(v - lo), torch.sign(v - hi)], dim=1)
+                         .to(torch.int8))
+        return torch.clamp(x, lo, hi)
 
 
 def _branches(run, stage, dtype):
@@ -223,8 +227,9 @@ def _branches(run, stage, dtype):
     head, features = fba_module._head, otvm_module.make_trimap_features
 
     def spy_head(x7, img):
-        seen.append(_sides(x7.detach(), img.detach()))
-        return head(x7, img)
+        with pytest.MonkeyPatch.context() as clamps:
+            clamps.setattr(fba_module, "torch", _ClampSides(seen))
+            return head(x7, img)
 
     def spy_features(trimap, exact_edt=False):
         seen.append(trimap.detach().argmax(-1).to(torch.int8))
