@@ -60,11 +60,11 @@ def cli_rank(cwd: str, data_root: str, scale: int, argvs):
 
     os.chdir(cwd)
     out = []
+    loader = cli_train.Loader       # both CLIs' epochs: cli/train.py's epoch_loader
     for name, argv in argvs:
         cli = {"train": cli_train, "train_s1_trimap": cli_s1}[name]
         log = dict(loaders=[], batches=[], losses=[])
-        loader, make_step = cli.Loader, cli.make_trimap_s1_train_step if cli is cli_s1 \
-            else cli.make_train_step
+        make_step = cli.make_trimap_s1_train_step if cli is cli_s1 else cli.make_train_step
 
         def recording_loader(dataset, idx, batch_size, **kwargs):
             log["loaders"].append((np.asarray(idx).tolist(), batch_size))
@@ -81,7 +81,7 @@ def cli_rank(cwd: str, data_root: str, scale: int, argvs):
 
             return run
 
-        cli.get_cfg_defaults, cli.Loader = scaled, recording_loader
+        cli.get_cfg_defaults, cli_train.Loader = scaled, recording_loader
         if cli is cli_s1:
             cli.make_trimap_s1_train_step = recording_step
         else:
