@@ -1,0 +1,6 @@
+"""Share of the traced steps' wall time in which no kernel or copy ran on
+the card (torch.profiler; averaged over the ranks' cards)."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["window_s"])
