@@ -53,6 +53,7 @@ from ..data.loader import Loader, encode_wire, epoch_indices
 from ..parallel import dist as D
 from ..train.graphs import refusal
 from ..train.trainer import init_train_state, make_train_step, make_viz_forward
+from ..utils import trace
 from ..utils.checkpoint import restore_params_only, restore_train_state, save_train_state
 from ..utils.logging import AverageMeter, StepTimer, create_logger
 from ..utils.viz import save_train_grid
@@ -176,13 +177,15 @@ def epoch_loader(cfg: Config, dataset, epoch: int, repeats: int, batch_size: int
 
 def timed_batches(loader: Loader, waits: List[float]) -> Iterator[Dict]:
     """`loader`'s batches; appends to `waits` the seconds each one took to
-    come (the loop's wait on the Loader)."""
+    come (the loop's wait on the Loader), each wait a data.wait span
+    (utils/trace.py)."""
     batches = iter(loader)
     try:
         while True:
             t0 = time.perf_counter()
             try:
-                batch = next(batches)
+                with trace.span("data.wait"):
+                    batch = next(batches)
             except StopIteration:
                 return
             waits.append(time.perf_counter() - t0)

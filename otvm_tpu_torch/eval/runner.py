@@ -23,6 +23,14 @@ Pipelining: a step's outputs start a non-blocking copy into pinned host
 memory as soon as they are enqueued, and are read after the next step is
 enqueued, after their CUDA event.
 
+Spans (utils/trace.py, recorded under a profiler or `trace.enable()`):
+each frame's host work is a `serve.frame` (ids clip and frame) holding
+serve.prepare (padding, the wire dtype), serve.upload, serve.step (the
+step call), the previous frame's serve.readback_wait (its CUDA event) and
+serve.outputs (the host copy, unpadding), and serve.prefetch; a clip's
+last frame reads its own outputs inside its span.  Each frame adds one to
+the counter serve.frames.
+
 On CUDA the evaluators serve each frame from CUDA graphs
 (models/graphs.py: one replay a frame, as the JAX evaluators always run
 the jitted step); `graphs=False` keeps the eager step, for comparisons and
@@ -33,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import shutil
@@ -52,7 +61,10 @@ from ..models.otvm import (alpha_predict, eval_chunk_step, eval_frame_step, make
 from ..models.stm import STM
 from ..nn.layers import freeze_for_inference
 from ..nn.ops import divide_pad_amounts
+from ..utils import trace
 from .metrics import trimap_iou, video_metrics
+
+_CLIPS = itertools.count()      # the clip ids of the spans (utils/trace.py)
 
 
 @dataclasses.dataclass
@@ -180,14 +192,26 @@ class _Device:
         return hosts, done
 
     @staticmethod
-    def _fetch(pending) -> List[np.ndarray]:
+    def _wait(pending) -> List[torch.Tensor]:
+        """The host buffers of a `_prefetch`, once its copy has landed (off
+        CUDA at once)."""
+        hosts, done = pending
+        with trace.span("serve.readback_wait"):
+            if done is not None:
+                done.synchronize()
+        return hosts
+
+    @staticmethod
+    def _own(hosts: Sequence[torch.Tensor]) -> List[np.ndarray]:
         """The outputs as host arrays of their own: the pinned buffers go
         back to the allocator's cache for the next step, instead of staying
         page-locked as long as the caller keeps the frames."""
-        hosts, done = pending
-        if done is not None:
-            done.synchronize()
         return [h.numpy().copy() for h in hosts]
+
+    @staticmethod
+    def _fetch(pending) -> List[np.ndarray]:
+        """`_wait`, then `_own`."""
+        return _Device._own(_Device._wait(pending))
 
 
 def _frame_outputs(a: np.ndarray, t: np.ndarray, pad):
@@ -298,28 +322,38 @@ class StreamingEvaluator(_Device):
         if p.chunk > 1:
             self._run_chunked(bank, padded, first_tri, flags, max_num, pad, alphas, trimaps)
         else:
-            pending = None
+            clip, pending = next(_CLIPS), None
             for i in range(n):
                 first, memorize, last = flags[i]
-                frame = self._upload(_wire_u8(padded(i))[None], self._frame_input(f0))
-                out = self._step(bank, frame, first_tri, first, memorize, last,
-                                 max_memory_num=max_num, wire_u8_out=p.wire_u8_out,
-                                 memory_impl=self.memory_impl)
-                bank = out.bank
-                if pending is not None:
-                    self._collect(pending, pad, alphas, trimaps)
-                pending = self._prefetch((out.alpha, out.trimap))
-            self._collect(pending, pad, alphas, trimaps)
+                with trace.span("serve.frame", clip=clip, frame=i):
+                    with trace.span("serve.prepare"):
+                        wire = _wire_u8(padded(i))[None]
+                    with trace.span("serve.upload"):
+                        frame = self._upload(wire, self._frame_input(f0))
+                    with trace.span("serve.step"):
+                        out = self._step(bank, frame, first_tri, first, memorize, last,
+                                         max_memory_num=max_num, wire_u8_out=p.wire_u8_out,
+                                         memory_impl=self.memory_impl)
+                    bank = out.bank
+                    if pending is not None:
+                        self._collect(pending, pad, alphas, trimaps)
+                    with trace.span("serve.prefetch"):
+                        pending = self._prefetch((out.alpha, out.trimap))
+                    if i == n - 1:
+                        self._collect(pending, pad, alphas, trimaps)
+                trace.count("serve.frames")
         fps = n / (time.perf_counter() - t_start)
         _write_clip(frames01, trimaps, alphas, out_dir, filenames, viz_dir)
         return alphas, trimaps, fps
 
     def _collect(self, pending, pad, alphas, trimaps):
-        a, t = self._fetch(pending)
-        for aj, tj in zip(a, t):                       # the batch of 1, or a chunk
-            alpha, trimap = _frame_outputs(aj, tj, pad)
-            alphas.append(alpha)
-            trimaps.append(trimap)
+        hosts = self._wait(pending)
+        with trace.span("serve.outputs"):
+            a, t = self._own(hosts)
+            for aj, tj in zip(a, t):                   # the batch of 1, or a chunk
+                alpha, trimap = _frame_outputs(aj, tj, pad)
+                alphas.append(alpha)
+                trimaps.append(trimap)
 
     def _run_chunked(self, bank, padded, first_tri, flags, max_num, pad, alphas, trimaps):
         """`chunk` frames a call (`eval_chunk_step`), the flags per frame:
@@ -331,23 +365,32 @@ class StreamingEvaluator(_Device):
         as it is and whose outputs it drops; the flags here are host bools,
         so the tail chunk runs its real frames only, and the bank ends as
         JAX's.  Outputs fp32, as JAX's in fp32 (in bf16 JAX returns bf16
-        arrays; ROADMAP §3)."""
+        arrays; ROADMAP §3).  A chunk is one serve.frame span, its first
+        frame's index its id, and counts its frames in serve.frames."""
         p = self.protocol
         if p.scale != 1:
             raise ValueError("the chunked path serves the real model (scale 1), as in JAX")
-        pending = None
+        clip, pending = next(_CLIPS), None
         for lo in range(0, len(flags), p.chunk):
             hi = min(lo + p.chunk, len(flags))
-            frames = np.stack([padded(i) for i in range(lo, hi)])
-            chunk = self._upload(_wire_u8(frames)[:, None])                   # [C, 1, H, W, 3]
-            first, mem, last = zip(*flags[lo:hi])
-            bank, a, t = eval_chunk_step(self.stm, self.fba, bank, chunk, first_tri, first, mem,
-                                         last, max_memory_num=max_num,
-                                         memory_impl=self.memory_impl, graphs=self.step_graphs)
-            if pending is not None:
-                self._collect(pending, pad, alphas, trimaps)
-            pending = self._prefetch((a[:, 0], t[:, 0]))
-        self._collect(pending, pad, alphas, trimaps)
+            with trace.span("serve.frame", clip=clip, frame=lo):
+                with trace.span("serve.prepare"):
+                    wire = _wire_u8(np.stack([padded(i) for i in range(lo, hi)]))[:, None]
+                with trace.span("serve.upload"):
+                    chunk = self._upload(wire)                               # [C, 1, H, W, 3]
+                first, mem, last = zip(*flags[lo:hi])
+                with trace.span("serve.step"):
+                    bank, a, t = eval_chunk_step(self.stm, self.fba, bank, chunk, first_tri, first,
+                                                 mem, last, max_memory_num=max_num,
+                                                 memory_impl=self.memory_impl,
+                                                 graphs=self.step_graphs)
+                if pending is not None:
+                    self._collect(pending, pad, alphas, trimaps)
+                with trace.span("serve.prefetch"):
+                    pending = self._prefetch((a[:, 0], t[:, 0]))
+                if hi == len(flags):
+                    self._collect(pending, pad, alphas, trimaps)
+            trace.count("serve.frames", hi - lo)
 
     def _run_given_trimaps(self, frames01, first_trimap3, gt_trimaps):
         """Stage 1-2 (models/alpha/model.py:419, 456-457 with the trimap
@@ -356,17 +399,31 @@ class StreamingEvaluator(_Device):
         tris = list(gt_trimaps) if gt_trimaps is not None else [first_trimap3]
         n = min(len(frames01), len(tris))
         alphas = []
+
+        def collect(pending, pad):
+            hosts = self._wait(pending)
+            with trace.span("serve.outputs"):
+                alphas.append(_unpad(self._own(hosts)[0][0, ..., 0], pad))
+
         t_start = time.perf_counter()
-        pending = None
+        clip, pending = next(_CLIPS), None
         for i in range(n):
-            f, t, pad = _pad_frame(frames01[i], tris[i], p.pad_multiple)
-            alpha, _ = self._step(self._upload(_wire_u8(f)[None], self._frame_input(f)),
-                                  self._upload(t[None].astype(np.float32)).to(self.dtype))
-            if pending is not None:
-                alphas.append(_unpad(self._fetch(pending[0])[0][0, ..., 0], pending[1]))
-            pending = (self._prefetch((alpha,)), pad)
-        if pending is not None:
-            alphas.append(_unpad(self._fetch(pending[0])[0][0, ..., 0], pending[1]))
+            with trace.span("serve.frame", clip=clip, frame=i):
+                with trace.span("serve.prepare"):
+                    f, t, pad = _pad_frame(frames01[i], tris[i], p.pad_multiple)
+                    wire, tri = _wire_u8(f)[None], t[None].astype(np.float32)
+                with trace.span("serve.upload"):
+                    frame = self._upload(wire, self._frame_input(f))
+                    tri = self._upload(tri).to(self.dtype)
+                with trace.span("serve.step"):
+                    alpha, _ = self._step(frame, tri)
+                if pending is not None:
+                    collect(*pending)
+                with trace.span("serve.prefetch"):
+                    pending = (self._prefetch((alpha,)), pad)
+                if i == n - 1:
+                    collect(*pending)
+            trace.count("serve.frames")
         fps = n / (time.perf_counter() - t_start)
         return alphas, tris[:n], fps
 
@@ -417,7 +474,7 @@ class MultiStreamEvaluator(StreamingEvaluator):
             flags, max_num, _ = p.flags(len(frames), h, w)
             f0, t0, pad = _pad_frame(frames[0], v["first_trimap"], p.pad_multiple)
             sessions.append(dict(
-                frames=frames, flags=flags, max_num=max_num, pad=pad, f0=f0,
+                clip=next(_CLIPS), frames=frames, flags=flags, max_num=max_num, pad=pad, f0=f0,
                 bank=self._bank(f0.shape[0], f0.shape[1], max_num, self.dtype, own=True),
                 first_tri=torch.from_numpy(t0[None]).to(self.device, self.dtype),
                 alphas=[], trimaps=[], pending=None))
@@ -428,18 +485,27 @@ class MultiStreamEvaluator(StreamingEvaluator):
             for s in sessions:
                 if step >= len(s["frames"]):
                     continue
-                f = s["f0"] if step == 0 else _pad_frame(s["frames"][step], None,
-                                                         p.pad_multiple)[0]
                 first, memorize, last = s["flags"][step]
-                out = self._step(s["bank"], self._upload(_wire_u8(f)[None], self._frame_input(f)),
-                                 s["first_tri"], first, memorize, last,
-                                 max_memory_num=s["max_num"], wire_u8_out=p.wire_u8_out,
-                                 memory_impl=self.memory_impl)
-                s["bank"] = out.bank
-                # the previous step's copy landed during the other streams' steps
-                if s["pending"] is not None:
-                    self._collect(s["pending"], s["pad"], s["alphas"], s["trimaps"])
-                s["pending"] = self._prefetch((out.alpha, out.trimap))
+                with trace.span("serve.frame", clip=s["clip"], frame=step):
+                    with trace.span("serve.prepare"):
+                        f = s["f0"] if step == 0 else _pad_frame(s["frames"][step], None,
+                                                                 p.pad_multiple)[0]
+                        wire = _wire_u8(f)[None]
+                    with trace.span("serve.upload"):
+                        frame = self._upload(wire, self._frame_input(f))
+                    with trace.span("serve.step"):
+                        out = self._step(s["bank"], frame, s["first_tri"], first, memorize, last,
+                                         max_memory_num=s["max_num"], wire_u8_out=p.wire_u8_out,
+                                         memory_impl=self.memory_impl)
+                    s["bank"] = out.bank
+                    # the previous step's copy landed during the other streams' steps
+                    if s["pending"] is not None:
+                        self._collect(s["pending"], s["pad"], s["alphas"], s["trimaps"])
+                    with trace.span("serve.prefetch"):
+                        s["pending"] = self._prefetch((out.alpha, out.trimap))
+                trace.count("serve.frames")
+        # each stream's last outputs, outside its frames' spans: read here, their
+        # copies landed during the other streams' steps
         for s in sessions:
             if s["pending"] is not None:
                 self._collect(s["pending"], s["pad"], s["alphas"], s["trimaps"])
@@ -489,18 +555,32 @@ class TrimapEvaluator(_Device):
         bank = self._bank(f0.shape[0], f0.shape[1], max_num, torch.float32)
         first_tri = torch.from_numpy(t0[None]).to(self.device)
         trimaps = []
+
+        def collect(pending):
+            hosts = self._wait(pending)
+            with trace.span("serve.outputs"):
+                trimaps.append(_unpad(self._own(hosts)[0][0], pad))
+
         t_start = time.perf_counter()
-        pending = None
+        clip, pending = next(_CLIPS), None
         for i in range(n):
-            f = f0 if i == 0 else _pad_frame(frames01[i], None, p.pad_multiple)[0]
             first, memorize, _ = flags[i]
-            frame = self._upload(f[None].astype(np.float32), self._frame_input(f, torch.float32))
-            bank, pred = self._step(bank, frame, first_tri, first, memorize,
-                                    max_memory_num=max_num)
-            if pending is not None:
-                trimaps.append(_unpad(self._fetch(pending)[0][0], pad))
-            pending = self._prefetch((pred,))
-        trimaps.append(_unpad(self._fetch(pending)[0][0], pad))
+            with trace.span("serve.frame", clip=clip, frame=i):
+                with trace.span("serve.prepare"):
+                    f = f0 if i == 0 else _pad_frame(frames01[i], None, p.pad_multiple)[0]
+                    host = f[None].astype(np.float32)
+                with trace.span("serve.upload"):
+                    frame = self._upload(host, self._frame_input(f, torch.float32))
+                with trace.span("serve.step"):
+                    bank, pred = self._step(bank, frame, first_tri, first, memorize,
+                                            max_memory_num=max_num)
+                if pending is not None:
+                    collect(pending)
+                with trace.span("serve.prefetch"):
+                    pending = self._prefetch((pred,))
+                if i == n - 1:
+                    collect(pending)
+            trace.count("serve.frames")
         fps = n / (time.perf_counter() - t_start)
         if out_dir is not None:
             import cv2

@@ -39,11 +39,12 @@ next step; `eval_chunk_step` clones them).  Inputs are static buffers
 outside the pool: the tensors a step reads (`frame_buffer` is the frame's:
 a caller may upload straight into it) and the bank (`bank`: a bank made
 there needs no copy; any other bank of the same shape is copied in before
-the step and back after it, ~16 MB at 512p in fp32).  The first trimap is
-read only on first frames, which run eagerly (and by the trimap step's
-memorize_gt, where it is an input).  A cache keeps at most MAX_BUCKETS
-buckets; a new one evicts the least recently used, with its graphs and
-pool.
+the step and back after it, ~16 MB at 512p in fp32: the two
+graphs.bank_copy spans of utils/trace.py, beside graphs.replay).  The
+first trimap is read only on first frames, which run eagerly (and by the
+trimap step's memorize_gt, where it is an input).  A cache keeps at most
+MAX_BUCKETS buckets; a new one evicts the least recently used, with its
+graphs and pool.
 
 Ordering.  Replays and first frames run on the caller's current stream,
 warm-ups and captures on the cache's stream, each side waiting for the
@@ -65,6 +66,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import memory_attn as ma
+from ..utils import trace
 from .fba import FBA
 from .memory import MemoryBank
 from .otvm import EvalOutput, alpha_predict, eval_frame_step, make_eval_bank, trimap_eval_step
@@ -232,19 +234,22 @@ class _StepGraphs(GraphCache):
                 keys, values = self._static_bank(bank_key)
                 own = keys.data_ptr() == bank.keys.data_ptr()
                 if not own:
-                    keys.copy_(bank.keys)
-                    values.copy_(bank.values)
+                    with trace.span("graphs.bank_copy"):
+                        keys.copy_(bank.keys)
+                        values.copy_(bank.values)
                 static_bank = MemoryBank(keys, values, bank.count)
             entry = bucket.graphs.get(key)
             if entry is None:
                 outputs, count = self._warm_up_and_capture(bucket, key, statics, static_bank,
                                                            body)
             else:
-                self._replay(entry.graph, entry.reads)
+                with trace.span("graphs.replay"):
+                    self._replay(entry.graph, entry.reads)
                 outputs, count = entry.outputs, entry.count
             if not own:
-                bank.keys.copy_(keys)
-                bank.values.copy_(values)
+                with trace.span("graphs.bank_copy"):
+                    bank.keys.copy_(keys)
+                    bank.values.copy_(values)
         return outputs, count
 
     def _warm_up_and_capture(self, bucket: _Bucket, key: tuple, statics: List[torch.Tensor],

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils import trace
 
 _RENDEZVOUS = ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 BUCKET_BYTES = 25 << 20     # DistributedDataParallel's default bucket
@@ -310,12 +311,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, port: int, threads: int, queue, fn: Callable, args):
+def _rank_main(rank: int, world: int, port: int, threads: int, tracing: bool, queue,
+               fn: Callable, args):
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     torch.set_num_threads(threads)
+    if tracing:
+        trace.enable()
     try:
-        queue.put((rank, fn(*args)))
+        value = fn(*args)
+        queue.put((rank, value, trace.take()))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -326,7 +331,10 @@ def spawn(fn: Callable, world: int, *args, timeout: Optional[float] = None) -> l
     process (spawned: a module-level fn, picklable args) with torchrun's
     variables set (RANK = LOCAL_RANK, WORLD_SIZE, MASTER_ADDR localhost, a
     free MASTER_PORT) and this process's CPU threads shared among them.
-    fn joins the group itself (init_distributed).  Returns each rank's
+    fn joins the group itself (init_distributed).  Each rank records spans
+    where this process has `trace.enable()` on (and under a profiler of its
+    own); its records come back into this process's, tagged with its rank
+    (utils/trace.py absorb).  Returns each rank's
     return value, by rank; a rank that raises makes this raise, and so do
     ranks still running after `timeout` seconds (None: no limit), which are
     ended first (a rank waiting on a collective that another rank never
@@ -335,13 +343,19 @@ def spawn(fn: Callable, world: int, *args, timeout: Optional[float] = None) -> l
 
     queue = mp.get_context("spawn").SimpleQueue()
     threads = max(1, torch.get_num_threads() // world)
-    context = mp.start_processes(_rank_main, args=(world, _free_port(), threads, queue, fn, args),
+    context = mp.start_processes(_rank_main, args=(world, _free_port(), threads, trace.enabled(),
+                                                   queue, fn, args),
                                  nprocs=world, join=False, start_method="spawn")
     results, t0 = {}, time.monotonic()
+
+    def receive():
+        rank, value, records = queue.get()
+        results[rank] = value
+        trace.absorb(rank, records)
+
     while True:
         while not queue.empty():
-            rank, value = queue.get()
-            results[rank] = value
+            receive()
         if context.join(timeout=1.0):
             break
         if timeout is not None and time.monotonic() - t0 > timeout:
@@ -353,6 +367,5 @@ def spawn(fn: Callable, world: int, *args, timeout: Optional[float] = None) -> l
             raise TimeoutError(f"{world} ranks still running after {timeout:.0f} s (ranks done: "
                                f"{sorted(results)})")
     while not queue.empty():
-        rank, value = queue.get()
-        results[rank] = value
+        receive()
     return [results[r] for r in range(world)]

@@ -41,6 +41,7 @@ from ..models.graphs import FrameStepGraphs
 from ..models.memory import update_bank
 from ..models.otvm import eval_frame_step, init_models, make_eval_bank, make_trimap_features
 from ..models.stm import normalize_image
+from ..utils import trace
 
 
 def _median_ms(fn, reps):
@@ -169,22 +170,17 @@ def serving(stm_sd, fba_sd, dtype: str, clips, tri, rounds: int, top: int):
 
 
 def host_step_ms(ev: StreamingEvaluator, frames, tri) -> float:
-    """Median host time of the evaluator's step call over a run_video,
-    the first frame left out."""
-    step, times = ev._step, []
-
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = step(*args, **kwargs)
-        times.append(time.perf_counter() - t0)
-        return out
-
-    ev._step = timed
+    """Median host time of the evaluator's step call over a run_video
+    (its serve.step spans, utils/trace.py), the first frame left out."""
+    was_on, kept = trace.enabled(), len(trace.records())
+    trace.enable()
     try:
         ev.run_video(frames, tri)
     finally:
-        ev._step = step
-    return 1e3 * float(np.median(times[1:]))
+        if not was_on:
+            trace.disable()
+    times = [r.ms for r in trace.records()[kept:] if r.name == "serve.step"]
+    return float(np.median(times[1:]))
 
 
 def stream_view(ev: StreamingEvaluator, frames, tri, top: int):

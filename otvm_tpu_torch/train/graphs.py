@@ -66,6 +66,12 @@ runs beside the fp32 reads' cooperative L2 merge, which needs its whole
 grid on the card.  gloo's collectives run on the host and cannot be
 captured: a state with a gloo group is refused (`refusal`).
 
+Spans (utils/trace.py): train.upload (the static inputs' copy, which
+waits for the stream), train.prepare (RAdam's host count, the check of the
+tensors a graph holds), train.replay (the launch, the gradients bound
+back), train.advance (the metrics' copies, RAdam's host state), inside
+the trainer's train.step.
+
 Metrics are copies out of the pool (the next replay overwrites it), so a
 caller may keep them across steps.  A failed warm-up, capture or replay
 raises; nothing gives way to the eager step.  A step under a lockstep
@@ -84,6 +90,7 @@ import torch.distributed as dist
 from ..kernels import memory_attn as ma
 from ..models.graphs import GraphCache
 from ..parallel import dist as D
+from ..utils import trace
 
 # forward(state, the wire batch's tensors on the device) -> (loss, metrics)
 Forward = Callable[[object, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -153,10 +160,20 @@ class TrainStepGraphs(GraphCache):
             if self.pool is None:
                 self._stream_on(device)
                 self.pool = torch.cuda.graph_pool_handle()
-            statics = self._statics(key, host, device)
+            with trace.span("train.upload"):
+                statics = self._statics(key, host, device)
             opt = state.optimizer
-            opt.prepare()
-            if key not in self._graphs:
+            warm = key not in self._graphs
+            with trace.span("train.prepare"):
+                opt.prepare()
+                entry = self._graphs.get(key)
+                if entry is not None and entry.held != _held(state):
+                    raise RuntimeError(
+                        "the train state's modules, parameters, RAdam moments or step count are "
+                        "not the tensors its CUDA graph was captured with (a replaced module or "
+                        "optimizer state, convert.radam_state_from_jax, another state): make a "
+                        "new train step for this state")
+            if warm:
                 if group is not None:       # before the key's first collective
                     D.check_same_key(shared, group, device)
                 metrics = self._warm_up(lambda: self._first(state, statics, key))
@@ -164,20 +181,16 @@ class TrainStepGraphs(GraphCache):
                     x.record_stream(torch.cuda.current_stream())
                 self._graphs[key] = None
             else:
-                entry = self._graphs[key]
                 if entry is None:
                     entry = self._graphs[key] = self._captured(state, statics, key)
-                elif entry.held != _held(state):
-                    raise RuntimeError(
-                        "the train state's modules, parameters, RAdam moments or step count are "
-                        "not the tensors its CUDA graph was captured with (a replaced module or "
-                        "optimizer state, convert.radam_state_from_jax, another state): make a "
-                        "new train step for this state")
-                self._replay(entry.graph, entry.reads)
-                for p, g in zip(opt.param_groups[0]["params"], entry.grads):
-                    p.grad = g
-                metrics = {k: v.clone() for k, v in entry.metrics.items()}
-            opt.advance()
+                with trace.span("train.replay"):
+                    self._replay(entry.graph, entry.reads)
+                    for p, g in zip(opt.param_groups[0]["params"], entry.grads):
+                        p.grad = g
+            with trace.span("train.advance"):
+                if not warm:
+                    metrics = {k: v.clone() for k, v in entry.metrics.items()}
+                opt.advance()
         state.step += 1
         return metrics
 

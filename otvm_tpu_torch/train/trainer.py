@@ -46,6 +46,7 @@ from ..models.fba import FBA
 from ..models.otvm import init_models, joint_train_forward, trimap_train_forward
 from ..models.stm import STM
 from ..parallel import dist as D
+from ..utils import trace
 from . import losses as L
 from .graphs import TrainStepGraphs, refusal
 from .optim import SCHEDULES, RAdam
@@ -125,19 +126,28 @@ def _train_step(forward: Callable, static: tuple, graphs: Optional[bool]) -> Cal
     device) -> (loss, metrics): from CUDA graphs (train/graphs.py) where
     `graphs` is True, or None and graphs can serve the state (on CUDA,
     alone or with an NCCL group: train/graphs.py refusal); else eagerly.
-    graphs=True where graphs cannot serve raises."""
+    graphs=True where graphs cannot serve raises.  Each step is a
+    train.step span (utils/trace.py; ids step and rank) and adds one to the
+    counter train.steps; the eager step's spans inside it are train.upload
+    and train.device_step, the graphed one's train/graphs.py's."""
     compiled = None if graphs is False else TrainStepGraphs(forward, static)
 
     def train_step(state: TrainState, batch: Mapping):
-        if compiled is not None:
-            why = refusal(state)
-            if why is None:
-                return state, compiled(state, batch)
-            if graphs:
-                raise ValueError(f"graphs=True: {why}")
-        loss, metrics = forward(state, _on_device(batch, state.device))
-        _apply(state, loss)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        why = None if compiled is None else refusal(state)
+        if why and graphs:
+            raise ValueError(f"graphs=True: {why}")
+        with trace.span("train.step", step=state.step, rank=D.process_index()):
+            if compiled is not None and why is None:
+                metrics = compiled(state, batch)
+            else:
+                with trace.span("train.upload"):
+                    on_device = _on_device(batch, state.device)
+                with trace.span("train.device_step"):
+                    loss, metrics = forward(state, on_device)
+                    _apply(state, loss)
+                metrics = {k: v.detach() for k, v in metrics.items()}
+        trace.count("train.steps")
+        return state, metrics
 
     train_step.graphs = compiled
     return train_step

@@ -27,6 +27,7 @@ from otvm_tpu_torch.data.datasets import DIMTrain, VM108Train, vm108_max_skip_fo
 from otvm_tpu_torch.data.loader import Loader, encode_wire, epoch_indices
 from otvm_tpu_torch.parallel import dist as D
 from otvm_tpu_torch.tools import ddp_check as C
+from otvm_tpu_torch.utils import trace
 from tests import ddp_workers
 from tests.torch_port import one_thread, write_train_tree  # noqa: F401
 
@@ -37,15 +38,26 @@ LINES = {name: C.Line(name, stage, ("checked",) * 3, state_at=3, trimap=name == 
 
 
 @pytest.fixture(scope="module")
-def two_ranks():
+def two_ranks_traced():
     """The lines on 2 ranks, a thread each (spawn shares this process's
-    threads among them; the module's tests run before one_thread sets it)."""
+    threads among them; the module's tests run before one_thread sets it),
+    with spans on (utils/trace.py): (each rank's result, the records that
+    spawn brought back)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    trace.reset()
+    trace.enable()
     try:
-        return C.run(2, "cpu", lines=tuple(LINES.values()), scale=SCALE, size=HW, frames=S)
+        results = C.run(2, "cpu", lines=tuple(LINES.values()), scale=SCALE, size=HW, frames=S)
+        return results, trace.take()
     finally:
+        trace.disable()
         torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(two_ranks_traced):
+    return two_ranks_traced[0]
 
 
 @pytest.mark.parametrize("name", list(LINES))
@@ -65,6 +77,27 @@ def test_two_ranks_take_the_one_process_step(two_ranks, name):
         assert cmp["moments_at"]["stm"] == 0.0 and cmp["exp_avg"]["stm"] == 0.0
     if name == "stage2":            # the frozen STM is not in the optimizer
         assert set(cmp["exp_avg"]) == {"fba"}
+
+
+def test_both_ranks_spans_reach_the_parent(two_ranks_traced):
+    """Each rank's train steps, recorded in its own process, come back
+    through spawn tagged with its rank (rank 0 takes the one-process steps
+    it is compared with as well); nothing else is recorded here."""
+    _, records = two_ranks_traced
+    steps = {0: [], 1: []}
+    for r in records:
+        if r.name == "train.step":
+            steps[r.rank].append(r)
+            assert r.ids["rank"] == r.rank
+    assert len(steps[0]) > len(steps[1]) > 0
+    for rank, spans in steps.items():
+        counted = sum(r.n for r in records if r.name == "train.steps" and r.rank == rank)
+        assert counted == len(spans)
+        ids = {r.id for r in spans}
+        uploads = [r for r in records if r.name == "train.upload" and r.rank == rank
+                   and r.parent in ids]
+        assert len(uploads) == len(spans)
+    assert trace.records() == []
 
 
 def test_local_exclusion_ratio_fails_the_check():
