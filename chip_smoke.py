@@ -146,7 +146,18 @@ Phases, in order; any failure exits non-zero:
      320x320, B 2); dim_overfit on its checkpoint, whose SAD must have
      fallen by SAD_DROP; then onsynth on random stage-4 weights, eagerly,
      its 3 x 11 reads (JFA fp32, exact EDT fp32, JFA bf16 over 12 frames)
-     each held to the plain read in lockstep.
+     each held to the plain read in lockstep;
+ 14. the serving group norm (otvm_tpu_torch/kernels/csrc/group_norm.cu,
+     built like the read; ptxas's report printed) through
+     otvm_tpu_torch/tools/bench_group_norm.py: at every distinct shape of
+     a stage-4 frame's 66 group norms at 1088x1920, bf16 and fp32, the
+     kernels against F.group_norm and the activation in fp32 rounded once
+     (norm-relative error; torch's own bf16 GroupNorm beside it), their
+     device time beside the bound (3 x bytes over 3.35 TB/s), the plain
+     version's and F.group_norm's (library_ms), summed over the frame.
+     Its launches (replays counted) are read from the runs above: phase 5's
+     timed graphed bf16 stream (66 a frame), phase 7's trimap-only stream
+     and the train steps of phases 6 and 11 (none).
 Phases 4-9 check every read of their fp32 paths in lockstep, so those paths
 run eagerly (graphs=False, the CLIs' --eager); the others, phase 5's
 timed bf16 stream (the main path) among them, are graphed.  The line before the last is a JSON
@@ -454,6 +465,7 @@ def train_phase(torch, ma, card):
     """Phase 6, second part: full-width training through the trainer's
     entry points."""
     from otvm_tpu_torch import config
+    from otvm_tpu_torch.kernels import group_norm as gn
     from otvm_tpu_torch.tools.profile_train import profile_step, seeded_batches, timed_step
     from otvm_tpu_torch.tools.kernel_check import lockstep_check, lockstep_grad_check
     from otvm_tpu_torch.train import trainer as T
@@ -473,7 +485,7 @@ def train_phase(torch, ma, card):
                merges_per_step=split32, bf16_merges_per_step=split16)
 
     torch.cuda.synchronize()
-    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = gn.launches = 0
     with lockstep_check(torch.float32) as fwd_errs, \
             lockstep_grad_check(torch.float32) as bwd_errs:
         for i in range(TRAIN_STEPS):
@@ -568,6 +580,10 @@ def train_phase(torch, ma, card):
     assert all(np.isfinite(losses1)), "trimap-s1 train step: non-finite loss"
     assert ma.launches == reads_per_step * TRIMAP_STEPS, "the trimap steps did not run the kernel"
     assert merges(ma) == tuple(n * TRIMAP_STEPS for n in split1)
+    # training keeps nn.GroupNorm: none of the steps above ran the serving norm
+    out["group_norm_launches"] = gn.launches
+    print(f"  group_norm launches in the fp32, bf16 and trimap-s1 steps above: {gn.launches}")
+    assert gn.launches == 0, "a train step ran the serving group norm"
     return out
 
 
@@ -583,6 +599,7 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     reference of the multi-stream and chunked runs."""
     from otvm_tpu_torch.eval.runner import (EvalProtocol, MultiStreamEvaluator,
                                             StreamingEvaluator, TrimapEvaluator)
+    from otvm_tpu_torch.kernels import group_norm as gn
     from otvm_tpu_torch.models.otvm import init_models, make_eval_bank, trimap_eval_step
     from otvm_tpu_torch.tools.kernel_check import lockstep_check
 
@@ -648,13 +665,16 @@ def serving_phase(torch, ma, card, stm_sd, fba_sd, frames, tri, serial):
     stm1 = init_models(seed=3, stage=1)[0].state_dict()
     trimap_ev = TrimapEvaluator(stm1, EvalProtocol(**proto), graphs=False)
     reset_counts(torch, ma)
+    gn.launches = 0
     with lockstep_check(torch.float32) as errs:
         tris, tfps = trimap_ev.run_video(frames, tri)
     out["trimap_fp32"] = dict(launches=ma.launches, merges=merges(ma), read_err=max(errs),
-                              frames_per_s_with_lockstep=tfps)
+                              frames_per_s_with_lockstep=tfps, group_norm_launches=gn.launches)
     print(f"  trimap-only fp32 (30 frames): memory_read {ma.launches} launches, merged "
-          f"{merges(ma)}; rel err <= {max(errs):.3e}; {tfps:.2f} frames/s (lockstep-checked)")
+          f"{merges(ma)}; rel err <= {max(errs):.3e}; {tfps:.2f} frames/s (lockstep-checked); "
+          f"group_norm {gn.launches} launches")
     assert ma.launches == N_FRAMES - 1, "the trimap stream did not read once per segment call"
+    assert gn.launches == 0, "the trimap stream (frozen-BN STM, no GroupNorm) ran the group norm"
     assert len(tris) == N_FRAMES and all(t.shape == (H, W, 3) and np.isfinite(t).all()
                                          for t in tris)
     # memorize_gt: every frame memorized with the GT trimap, the bank (at
@@ -1149,10 +1169,12 @@ def train_graphs_phase(torch, ma, card):
     """Phase 11: the train steps from CUDA graphs against the eager steps,
     at full width (tools/train_graphs_check.py)."""
     from otvm_tpu_torch import config
+    from otvm_tpu_torch.kernels import group_norm as gn
     from otvm_tpu_torch.tools import train_graphs_check as C
     from otvm_tpu_torch.tools.profile_train import seeded_batches
 
     t11 = time.perf_counter()
+    gn.launches = 0
     cfg = config.get_cfg_defaults()
     cfg.train.stage = 4
     batches = seeded_batches(cfg, max(TRAIN_GRAPH_STEPS.values()), seed=1)
@@ -1208,6 +1230,10 @@ def train_graphs_phase(torch, ma, card):
                 "the frozen-decay control was not rejected at the drop alone"
     nets.clear()
     torch.cuda.empty_cache()
+    # the graphed train steps keep nn.GroupNorm: none replays the serving norm
+    out["group_norm_launches"] = gn.launches
+    print(f"  group_norm launches in phase 11's graphed and eager steps: {gn.launches}")
+    assert gn.launches == 0, "a train step ran the serving group norm"
     out["seconds"] = time.perf_counter() - t11
     print(f"  phase 11 took {out['seconds']:.1f} s on {card}")
     return out
@@ -1334,6 +1360,42 @@ def quality_phase(torch, ma, card):
     return out
 
 
+# the frame's group norms must agree with F.group_norm in fp32 rounded once
+# to their dtype within these (norm-relative).  On an H100 the kernels read
+# at most 6.7e-5 (bf16) and 2.3e-7 (fp32); torch's own bf16 GroupNorm,
+# which rounds mean and rstd to bf16, 1.6e-3 to 5.1e-3 (PERF.md).
+GN_TOL = {"bfloat16": 5e-4, "float32": 2e-6}
+
+
+def group_norm_phase(torch, card):
+    """Phase 14: the serving group norm's kernels at a stage-4 frame's
+    shapes at 1088x1920 against F.group_norm, timed."""
+    from otvm_tpu_torch.kernels import group_norm as gn
+    from otvm_tpu_torch.tools import bench_group_norm as B
+
+    t14 = time.perf_counter()
+    gn.build()
+    for line in gn.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+    shapes = B.frame_shapes(1088, 1920)
+    assert sum(n for _, _, n in shapes) == 66, shapes
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name in ("bfloat16", "float32"):
+        out[name] = B.bench(getattr(torch, name), shapes, 20, flush)
+        worst = max(r["rel_err"] for r in out[name]["shapes"])
+        print(f"  {name} frame, {out[name]['norms']} norms: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in out[name]["frame"].items())
+              + f"; worst rel err {worst:.3e} (tol {GN_TOL[name]:g})")
+        assert worst <= GN_TOL[name], f"{name}: group norm rel err {worst:.3e}"
+    del flush
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t14
+    print(f"  phase 14 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def make_video(n, seed=0):
     """Smooth seeded frames (a coarse random grid, bilinearly upsampled,
     new per frame) and the bench's nested-box first trimap."""
@@ -1375,6 +1437,7 @@ def main() -> int:
     from otvm_tpu_torch import set_fp32_numerics
     from otvm_tpu_torch.eval.runner import EvalProtocol, StreamingEvaluator
     from otvm_tpu_torch.tools.kernel_check import lockstep_check
+    from otvm_tpu_torch.kernels import group_norm as gn
     from otvm_tpu_torch.kernels import memory_attn as ma
     from otvm_tpu_torch.models.otvm import init_models
 
@@ -1470,13 +1533,14 @@ def main() -> int:
     ev16 = StreamingEvaluator(stm_sd, fba_sd, proto16)
     ev16.run_video(frames, tri)                           # captures the stream's graphs
     torch.cuda.synchronize()
-    ma.launches = ma.cluster_launches = ma.l2_merge_launches = 0
+    ma.launches = ma.cluster_launches = ma.l2_merge_launches = gn.launches = 0
     ba, bt, fps = ev16.run_video(frames, tri)
-    bf16_launches, bf16_merges = ma.launches, merges(ma)
+    bf16_launches, bf16_merges, bf16_norms = ma.launches, merges(ma), gn.launches
     check_outputs(ba, bt, N_FRAMES, "bf16 stream")
     print(f"  launches in the bf16 stream: memory_read {bf16_launches}, of them merged in a "
-          f"cluster / through L2 {bf16_merges}")
+          f"cluster / through L2 {bf16_merges}; group_norm {bf16_norms} (want 66 a frame)")
     assert bf16_launches == N_FRAMES - 1, "the bf16 stream did not run the kernel per segment"
+    assert bf16_norms == 66 * N_FRAMES, "the bf16 stream did not run the serving group norm"
     assert sum(bf16_merges) == N_FRAMES - 1, "the bf16 stream did not split its reads"
     drift = [float(np.abs(b - a).mean()) for a, b in zip(ka, ba)]
     agree0 = (bt[0].argmax(-1) == kt[0].argmax(-1)).mean()
@@ -1533,6 +1597,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     quality = quality_phase(torch, ma, card)
 
+    print("phase 14: the serving group norm at a stage-4 frame's shapes")
+    torch.cuda.empty_cache()
+    norms = group_norm_phase(torch, card)
+
     # top-level numbers: the stream's shape (512p count 5) in bf16, with
     # the graphed bf16 stream's launches (replays counted); every timed shape and dtype under
     # "shapes", the other paths' launches beside.  A split read merges its
@@ -1570,7 +1638,15 @@ def main() -> int:
          "data_parallel_graphs": ddp_graphed,
          "quality": quality,
          "l2_merge_beside_held_sms": held,
-         "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}}]}))
+         "shapes": {f"{d} {label}": row for (d, label), row in timing.items()}},
+        {"name": "group_norm", "route": "cuda", "source": "otvm_tpu_torch/kernels/csrc/group_norm.cu",
+         "replaces": "none (the JAX package's GroupNorm is plain XLA)", "launches": bf16_norms,
+         "launches_elsewhere": {
+             f"trimap-only fp32 stream, {N_FRAMES} frames":
+                 serving["trimap_fp32"]["group_norm_launches"],
+             "train steps, phase 6 (eager)": train["group_norm_launches"],
+             "train steps, phase 11 (graphed and eager)": train_graphed["group_norm_launches"]},
+         **norms}]}))
     print(f"total {time.perf_counter() - t_all:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -25,11 +25,12 @@ reads no memory, and a capture would cost more than it saves.
 
 A key's first frame runs eagerly on the cache's own stream: the warm-up,
 whose results are that frame's, and which makes every lazy thing the step
-needs (the read's library, cluster table and L2 workspace, the
-normalization constants, cuDNN's plans).  Its step is captured right
-after, and later frames with the key replay it.  So each read is launched
-once per frame on either path, and counted so (`memory_attn.
-record_launches` / `count_launches`).
+needs (the read's and the group norm's libraries, the read's cluster
+table and L2 workspace, the normalization constants, cuDNN's plans).  Its
+step is captured right after, and later frames with the key replay it.
+So each read and each group norm is launched once per frame on either
+path, and counted so (`memory_attn.record_launches` / `count_launches`,
+and group_norm's).
 
 Memory.  The graphs of a bucket share one memory pool, so memory stays
 near one frame's peak.  A replay's outputs live in that pool: the next
@@ -65,6 +66,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels import group_norm as gn
 from ..kernels import memory_attn as ma
 from ..utils import trace
 from .fba import FBA
@@ -87,13 +89,22 @@ def max_graphs(max_memory_num: int) -> int:
     return 3 * max(max_memory_num, 1)
 
 
+@dataclasses.dataclass
+class Launches:
+    """The hand-written kernels a graph launches at each replay, as its
+    capture recorded them."""
+    reads: List[Tuple[int, int]]            # memory_attn.record_launches
+    norms: List[int]                        # group_norm.record_launches
+
+
 class GraphCache:
     """What the caches of CUDA graphs (these and train/graphs.py's) share:
     a capture stream of their own, made for a device on first use; warm-ups
     on it, ordered after the caller's stream's work and before its later
-    work; captures on it into a given pool, with the reads they launch
-    recorded (memory_attn.record_launches) and counted at each replay
-    (count_launches); a replay under a lockstep check refused."""
+    work; captures on it into a given pool, with the reads and group norms
+    they launch recorded (memory_attn.record_launches, group_norm's) and
+    counted at each replay (count_launches); a replay under a lockstep check
+    refused."""
 
     def __init__(self):
         self.stream: Optional[torch.cuda.Stream] = None
@@ -116,23 +127,24 @@ class GraphCache:
 
     def _capture(self, pool: tuple, fn: Callable):
         """fn() captured on the capture stream into `pool` -> (the graph,
-        fn's outputs in the pool, the reads it launches)."""
+        fn's outputs in the pool, the kernels it launches)."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with ma.record_launches() as reads, \
+        with ma.record_launches() as reads, gn.record_launches() as norms, \
                 torch.cuda.graph(graph, pool=pool, stream=self.stream):
             out = fn()
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
-        return graph, out, reads
+        return graph, out, Launches(reads, norms)
 
     @staticmethod
-    def _replay(graph: torch.cuda.CUDAGraph, reads: List[Tuple[int, int]]) -> None:
+    def _replay(graph: torch.cuda.CUDAGraph, launches: Launches) -> None:
         if ma.host_checks:
             raise RuntimeError("a lockstep check is active, and it cannot see the reads of a "
                                "graph replay: run with graphs=False to check")
         graph.replay()
-        ma.count_launches(reads)
+        ma.count_launches(launches.reads)
+        gn.count_launches(launches.norms)
 
 
 @dataclasses.dataclass
@@ -140,7 +152,7 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     outputs: Tuple[torch.Tensor, ...]
     count: Optional[int]                    # the bank's count after the step
-    reads: List[Tuple[int, int]]            # the reads it launches (record_launches)
+    launches: Launches                      # the kernels it launches
 
 
 @dataclasses.dataclass
@@ -244,7 +256,7 @@ class _StepGraphs(GraphCache):
                                                            body)
             else:
                 with trace.span("graphs.replay"):
-                    self._replay(entry.graph, entry.reads)
+                    self._replay(entry.graph, entry.launches)
                 outputs, count = entry.outputs, entry.count
             if not own:
                 with trace.span("graphs.bank_copy"):
@@ -258,10 +270,10 @@ class _StepGraphs(GraphCache):
         are this step's), then captured into the bucket's pool."""
         outputs, after = self._warm_up(lambda: body(statics, static_bank))
         # `static_bank` still holds the count the step starts from
-        graph, (captured, _), reads = self._capture(
+        graph, (captured, _), launches = self._capture(
             bucket.pool, lambda: body(statics, static_bank))
         count = None if after is None else after.count
-        bucket.graphs[key] = _Graph(graph, captured, count, reads)
+        bucket.graphs[key] = _Graph(graph, captured, count, launches)
         return outputs, count
 
 

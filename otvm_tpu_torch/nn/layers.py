@@ -7,6 +7,8 @@
   * GroupNorm32     - GroupNorm(min(32, C), C), eps 1e-5.
   * FrozenBatchNorm - BatchNorm2d that always normalizes with its running
                       stats, folded to x * inv + (bias - mean * inv).
+  * ServingGroupNorm - a frozen model's GroupNorm, with the activation after
+                      it fused: kernels/group_norm.py (freeze_for_inference).
 
 Random init follows flax's defaults so a randomly initialised port sees the
 activation scale of the JAX package: lecun_normal for Conv, he_normal for
@@ -16,11 +18,13 @@ running stats 0 and 1.  The values differ from JAX's: the generators differ.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import group_norm as gn
 
 Conv = nn.Conv2d   # (in, out, kernel, stride, padding, dilation, bias=...)
 
@@ -79,6 +83,37 @@ class _Affine(nn.Module):
         return x * self.inv.to(x.dtype) + self.shift.to(x.dtype)
 
 
+class ServingGroupNorm(nn.Module):
+    """A GroupNorm of a model frozen for serving, and the activation that
+    followed it ('relu', 'leaky_relu' or None): kernels/group_norm.py's op,
+    the kernels on CUDA, F.group_norm and the activation on the CPU.  Holds
+    the norm's own weight and bias (their names in the state_dict kept)."""
+
+    def __init__(self, norm: nn.GroupNorm, act: Optional[str] = None, slope: float = 0.01):
+        super().__init__()
+        self.num_groups, self.eps = norm.num_groups, norm.eps
+        self.weight, self.bias = norm.weight, norm.bias
+        self.act, self.slope = act, slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            # the kernels take NCHW-contiguous tensors; torch's CUDA GroupNorm
+            # makes the same copy itself (a convolution fed a permuted NHWC
+            # frame returns channels_last)
+            x = x.contiguous()
+        return gn.group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act,
+                             self.slope)
+
+
+def _activation(module: nn.Module) -> Optional[Tuple[str, float]]:
+    """(act, slope) of an activation module ServingGroupNorm can fuse."""
+    if isinstance(module, nn.ReLU):
+        return "relu", 0.0
+    if isinstance(module, nn.LeakyReLU):
+        return "leaky_relu", module.negative_slope
+    return None
+
+
 @torch.no_grad()
 def freeze_for_inference(module: nn.Module) -> nn.Module:
     """In place, for serving weights that no longer change: every WSConv
@@ -87,8 +122,14 @@ def freeze_for_inference(module: nn.Module) -> nn.Module:
     trunk's BNAffine: whatever has `folded()`) an affine holding its folded
     scale and shift.  Each is computed once, exactly as forward computes it
     on every call, so outputs are unchanged and a frame launches ~half as
-    many kernels.  Returns the module."""
-    for name, child in module.named_children():
+    many kernels.  Every nn.GroupNorm becomes a ServingGroupNorm; where an
+    nn.ReLU or nn.LeakyReLU follows it in an nn.Sequential, the activation
+    is fused into it and its module becomes nn.Identity (the same values on
+    the CPU; on CUDA the kernels round once where torch rounds after the
+    norm and again after the activation).  Training never freezes, so its
+    modules keep nn.GroupNorm and autograd.  Returns the module."""
+    children = list(module.named_children())
+    for i, (name, child) in enumerate(children):
         if isinstance(child, WSConv):
             conv = nn.Conv2d(child.in_channels, child.out_channels, child.kernel_size,
                              child.stride, child.padding, child.dilation,
@@ -100,6 +141,13 @@ def freeze_for_inference(module: nn.Module) -> nn.Module:
             setattr(module, name, conv.requires_grad_(False))
         elif callable(getattr(child, "folded", None)):
             setattr(module, name, _Affine(*child.folded()))
+        elif isinstance(child, nn.GroupNorm):
+            nxt = children[i + 1] if i + 1 < len(children) else None
+            act = (_activation(nxt[1])
+                   if nxt is not None and isinstance(module, nn.Sequential) else None)
+            setattr(module, name, ServingGroupNorm(child, *(act or ())))
+            if act is not None:
+                setattr(module, nxt[0], nn.Identity())
         else:
             freeze_for_inference(child)
     return module

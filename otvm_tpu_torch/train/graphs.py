@@ -88,7 +88,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels import memory_attn as ma
-from ..models.graphs import GraphCache
+from ..models.graphs import GraphCache, Launches
 from ..parallel import dist as D
 from ..utils import trace
 
@@ -101,7 +101,7 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     metrics: Dict[str, torch.Tensor]        # in the pool
     grads: List[Optional[torch.Tensor]]     # the parameters' gradients, in the pool
-    reads: List[Tuple[int, int]]            # the reads it launches (record_launches)
+    launches: Launches                      # the kernels it launches
     held: tuple                             # the state's tensors it addresses (_held)
 
 
@@ -184,7 +184,7 @@ class TrainStepGraphs(GraphCache):
                 if entry is None:
                     entry = self._graphs[key] = self._captured(state, statics, key)
                 with trace.span("train.replay"):
-                    self._replay(entry.graph, entry.reads)
+                    self._replay(entry.graph, entry.launches)
                     for p, g in zip(opt.param_groups[0]["params"], entry.grads):
                         p.grad = g
             with trace.span("train.advance"):
@@ -228,7 +228,7 @@ class TrainStepGraphs(GraphCache):
         """The key's step captured into the pool (run by the replay that
         follows)."""
         state.optimizer.zero_grad(set_to_none=True)
-        graph, metrics, reads = self._capture(self.pool,
-                                              lambda: self._device_step(state, statics, key))
+        graph, metrics, launches = self._capture(self.pool,
+                                                 lambda: self._device_step(state, statics, key))
         grads = [p.grad for p in state.optimizer.param_groups[0]["params"]]
-        return _Graph(graph, metrics, grads, reads, _held(state))
+        return _Graph(graph, metrics, grads, launches, _held(state))
