@@ -8,8 +8,10 @@ seed and the evaluator built on them, the traffic, and a warm-up clip just
 long enough to meet every graph key that the window's clips meet, so the
 window captures nothing.  Window: clips until `seconds` have passed, a
 clip that starts inside it counted to its end; stream_fps is all their
-frames over all that time.  With a trace, the window's first clip is
-profiled.  Afterwards the window's last clip is judged (checks/stream.py)."""
+frames over all that time.  Only the clip last served is kept for the
+check: a clip's outputs go before the next clip is served.  With a trace,
+the window's first clip is profiled.  Afterwards the window's last clip is
+judged (checks/stream.py)."""
 from __future__ import annotations
 
 import gc
@@ -161,15 +163,18 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, device=Non
     setup_s = clock.total()
 
     keep = judged_frames(n, h, w, joint, params, seed)
-    done, failed, k, summary, last = 0, 0, 0, None, None
+    done, failed, k, summary, last, clip_s = 0, 0, 0, None, None, []
     t0 = time.perf_counter()
     while True:
         frames, tri = traffic.clip(k)
+        last = None                 # the previous clip's outputs: only the last clip is judged
+        t_clip = time.perf_counter()
         if trace and k == 0:
             (alphas, trimaps), summary = profiling.traced(
                 lambda: _serve(ev, joint, frames, tri), device)
         else:
             alphas, trimaps = _serve(ev, joint, frames, tri)
+        clip_s.append(time.perf_counter() - t_clip)
         failed += n - len(trimaps)
         done += n
         last = (frames, tri, {i: ((alphas[i], trimaps[i]) if joint else trimaps[i])
@@ -181,6 +186,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, device=Non
     if on_card:
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
+    notes = ["clip fps: " + " ".join(f"{n / s:.4f}" for s in clip_s)]
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
 
     flags, max_num = rs.schedule(n, h, w)
@@ -194,7 +200,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, device=Non
     stats = judge(cell, seed, last, bank, n, h, w, joint, device)
     return {"end_to_end": {"setup_s": setup_s, "stream_fps": done / elapsed},
             "setup_parts": clock.parts, "attempted": done, "failed": failed,
-            "memory_peak_bytes": peak, **verdict(cell, stats),
+            "memory_peak_bytes": peak, "notes": notes, **verdict(cell, stats),
             "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
             "trace": trace_ctx}
 

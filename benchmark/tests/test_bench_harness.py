@@ -11,7 +11,7 @@ import sys
 import pytest
 
 from benchmark.harness import cells
-from benchmark.harness.main import result_line
+from benchmark.harness.main import reading, result_line
 from benchmark.tests.conftest import ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -57,6 +57,22 @@ def test_result_line_keys():
     assert line["compared"]["grad_gap"] == {"value": None, "limit": 0.5}
     json.loads(json.dumps(line))
 
+
+
+def test_a_cells_own_bound_reads_its_quantity():
+    """The trimap stream reports the runner's stream_fps as its own
+    stream_fps.trimap; the stage-4 stream as stream_fps."""
+    out = {"end_to_end": {"setup_s": 21.5, "stream_fps": 13.125}, "correct": True,
+           "attempted": 400, "failed": 0, "kind": "NVIDIA H100 80GB HBM3",
+           "memory_peak_bytes": 2e9, "compared": {"trimap_mae": (2e-7, 5e-6)}}
+    for name, metric in (("trimap-stream-1088x1920-fp32", "stream_fps.trimap"),
+                         ("s4-stream-1088x1920-bf16", "stream_fps")):
+        line = result_line(cells.find_cell(ROOT, name), out, trace=False)
+        assert line["metrics"] == {"setup_s": {"value": 21.5, "unit": "s"},
+                                   metric: {"value": 13.125, "unit": "frames/s"}}
+    assert reading({"stream_fps": 2.0, "stream_fps.trimap": 3.0}, "stream_fps.trimap") == 3.0
+    with pytest.raises(KeyError):
+        reading({"setup_s": 1.0}, "stream_fps.trimap")
 
 def test_benchmark_json_shapes():
     b = _bench()
