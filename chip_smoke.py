@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the memory-read kernels from otvm_tpu_torch/kernels/csrc (nvcc,
      sm_90a), timed; print ptxas's registers and spills; count the
-     tensor-core instructions (HGMMA: the bf16 wgmma; HMMA ... TF32: the
-     fp32 3xTF32 mma.sync), TMA loads (UTMALDG) and cluster barriers
+     tensor-core instructions (HGMMA: wgmma, of them HGMMA ... TF32 the
+     fp32 read's 3xTF32 ones; a TF32 HMMA, mma.sync, must be absent),
+     TMA loads (UTMALDG) and cluster barriers
      (UCGABAR_*: the split reads' cluster merge) in the library: each must
      be there; print how many blocks and clusters of 2..8 blocks of each
      read kernel the card holds at once (the split rule's limits);
@@ -23,7 +24,7 @@ Phases, in order; any failure exits non-zero:
      holds 40 SMs on another CUDA stream (otvm_tpu_torch/tools/
      coresidency.py, in a child process): launched cooperatively, it must
      wait for them and match the plain read; then the whole read's time at
-     512p count 5, 1088x1920 count 2 and the training shapes (B 4, HW 400,
+     512p count 5, 1088x1920 count 2 and 5 of 6, and the training shapes (B 4, HW 400,
      T 1 and 2) beside the plain version's, SDPA's (a yardstick only: the
      port never calls it) and the bound (fp32: at the 3xTF32 rate, the
      CUDA-core bound printed beside it).  Each comparison is the
@@ -195,6 +196,7 @@ TRAIN_B, TRAIN_S, TRAIN_HW = 4, 3, 320
 TRAIN_TOKENS = (TRAIN_HW // 16) ** 2    # HW of the read at the crop: 400
 # timed reads: b, hw, t, valid slots (None: no mask, as in training), label
 TIMED = [(1, 1024, 6, 5, "512p count 5"), (1, 8160, 3, 2, "1088x1920 count 2"),
+         (1, 8160, 6, 5, "1088x1920 count 5 of 6"),
          (TRAIN_B, TRAIN_TOKENS, 1, None, "train T=1"),
          (TRAIN_B, TRAIN_TOKENS, 2, None, "train T=2")]
 # split reads held to plain at forced splits 2..8 (merged as the rule
@@ -223,12 +225,13 @@ def card_line() -> str:
 
 
 def sass_counts(ma):
-    """Phase 2: HGMMA, TF32 HMMA, UTMALDG and cluster-barrier (UCGABAR_*)
+    """Phase 2: HGMMA (of them TF32), TF32 HMMA, UTMALDG and cluster-barrier (UCGABAR_*)
     instructions in the built library, and the cluster barrier's names."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(ma.library_path)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     barriers = re.findall(r"\bUCGABAR_\w+", sass)
     return {"HGMMA": len(re.findall(r"\bHGMMA\b", sass)),
+            "HGMMA TF32": len(re.findall(r"\bHGMMA\.\S*TF32\b", sass)),
             "HMMA TF32": len(re.findall(r"\bHMMA\.\S*TF32\b", sass)),
             "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass)),
             "UCGABAR": len(barriers)}, sorted(set(barriers))
@@ -331,7 +334,7 @@ def kernel_phase(torch, ma):
             rel_ctl = rel_err(ma.memory_read_plain(control(q), control(k), control(v), mask), want)
             table = ma.max_active_clusters(dt, ck, cv)
             rels = {}
-            tiles = -(-hw // ma.BQ) * (cv // ma.value_tile(cv)) * b
+            tiles = -(-hw // ma.query_tile(dt)) * (cv // ma.value_tile(cv)) * b
             for splits, blocks in SPLIT_SETTINGS:
                 if blocks == 1 and tiles * splits > table[1]:
                     continue
@@ -1455,10 +1458,9 @@ def main() -> int:
     report = ptxas_report(ma.build_log)
     for kernel, lines in report:
         print(f"  ptxas {kernel}: " + "; ".join(lines))
-    # The fp32 consumers hold all 240 of their registers in the main loop:
-    # a spill of more than one 4-byte value there is a broken build.  One
-    # value is allowed: the build that spills it ran the fp32 read fastest
-    # (PERF.md, PR 5).
+    # The fp32 warpgroups hold all of their registers in the main loop
+    # (setmaxnreg): a spill of more than one 4-byte value there is a broken
+    # build.
     f32 = [lines for kernel, lines in report if kernel.startswith("memory_read_f32tc")]
     spills = [int(m) for lines in f32 for line in lines
               for m in re.findall(r"(\d+) bytes spill stores", line)]
@@ -1467,7 +1469,8 @@ def main() -> int:
     print(f"  SASS of {ma.library_path.name}: " + ", ".join(f"{op} {n}" for op, n in sass.items())
           + f" ({', '.join(barriers)})")
     assert sass["HGMMA"] > 0, "no wgmma (HGMMA) instruction in the built library"
-    assert sass["HMMA TF32"] > 0, "no TF32 mma.sync (HMMA ... TF32) in the built library"
+    assert sass["HGMMA TF32"] > 0, "no TF32 wgmma (HGMMA ... TF32) in the built library"
+    assert sass["HMMA TF32"] == 0, "a TF32 mma.sync (HMMA ... TF32) is left in the library"
     assert sass["UTMALDG"] > 0, "no TMA load (UTMALDG) in the built library"
     assert sass["UCGABAR"] > 0, "no cluster barrier (UCGABAR_*) in the built library"
     clusters = {}

@@ -59,32 +59,37 @@
 //     over its sequential K/V grid axis instead (_flash_kernel's scratch
 //     and _finish, otvm_tpu/kernels/memory_attn.py:111-126).  With splits
 //     = 1 the block writes out.
-//   * memory_read_f32tc (fp32): the same grid, split and merge, on
-//     mma.sync m16n8k8 in 3xTF32.  Each fp32 operand x is split as it is
-//     loaded into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
-//     as cvt.rna does, and a b is a_hi b_lo + a_lo b_hi + a_hi b_hi, small
-//     terms first, summed in fp32: about 21 bits of each operand, fp32's
-//     accuracy in practice, where plain TF32 is ~1000x worse.  Each tile's
-//     P V starts from a fresh accumulator that the FPU adds to O: the
-//     tensor cores truncate as they accumulate, and over a whole bank that
-//     bias reaches 1e-4.  The warpgroups are memory_read_tc's (setmaxnreg
-//     24 / 240): two consumer warpgroups, eight warps of 16 query rows, and
-//     a producer whose one thread brings Q (64 KB) once and K/V tiles of 32
-//     positions (48 KB at CVT = 256) by TMA into a 3-stage ring, in boxes
-//     32 fp32 wide with the 128-byte swizzle.  mma.sync and not wgmma:
-//     wgmma takes a tf32 B only K-major from shared memory, and V is
-//     MN-major, so P V would need transposed hi and lo copies of every V
-//     tile; mma.sync takes both operands from registers, so V keeps its
-//     layout.  The price: mma.sync runs TF32 at about half wgmma's rate on
-//     the H100, so this kernel's floor is ~2x the 3xTF32 bound above.
-//     Every shared-memory read is a 16-byte load without bank conflicts:
-//     the key column of a k-step (in S) and the value column of an n-block
-//     (in P V) are renumbered, alike in both operands, so that a thread's
-//     values are contiguous; the S accumulator is P V's A operand as it
-//     stands, its two columns of a thread taken as k = t and t + 4 (V rows
-//     2t and 2t + 1 of each 8-position chunk).  K and V are split in
-//     registers by each warp (four integer or float instructions a value),
-//     which costs issue slots beside the mma.syncs but no shared memory.
+//   * memory_read_f32tc (fp32): 3xTF32 on wgmma, split and merged as
+//     above, over 64 query rows a block.  Each fp32 operand x is hi = x as
+//     it stands (wgmma reads a tf32 operand's 19 high bits: trunc(x)) and
+//     lo = x - trunc(x) (exact in fp32, read as trunc(lo)), and a b is
+//     a_hi b_lo + a_lo b_hi + a_hi b_hi, small terms first, summed in
+//     fp32: x to 2^-20 |x|, fp32's accuracy in practice, where plain TF32
+//     is ~1000x worse.  Each tile's P V goes to a fresh accumulator that
+//     the FPU adds to O: the tensor cores truncate as they accumulate, and
+//     over a whole bank that bias reaches 1e-4.  tf32 wgmma takes B only
+//     K-major from shared memory, and V is MN-major, so P V runs
+//     transposed, O^T = V^T P^T: A = V^T from registers (loaded from V's
+//     tile as TMA left it), B = P^T, which the softmax writes K-major.
+//     Each K, V and p value is split once, by one thread:
+//       - warpgroup 3: one thread brings Q once and K/V tiles of 32
+//         positions (48 KB at CVT = 256) by TMA into a 3-stage ring; its
+//         other three warps write each K tile's lo (K_lo) beside it;
+//       - warpgroup 2 (S): Q's 64 rows as A fragments, hi and lo, in its
+//         registers; S = Q K^T as wgmma m64n32k8, B = K and K_lo; the
+//         online softmax; p and p - trunc(p) into a P slot (two slots);
+//       - warpgroups 0 and 1 (P V): half the value columns each, as
+//         m-tiles of 64: A = V^T's fragment, split in registers, B = the P
+//         slot, wgmma m64n64k8.
+//     S is still computed for each CVT slice (Q's 128 rows in hi and lo
+//     would not fit beside O).  On an H100 80GB HBM3 at 700 W (device time,
+//     L2 flushed): 1088x1920, 2 valid slots of 3, 2.36-2.43 ms against the
+//     1.033 bound (4.014 on mma.sync m16n8k8, the design before); 5 valid
+//     of 6, 5.86-5.96; 512p 0.109-0.112 against 0.0407; training (B 4, HW
+//     400) T 1 0.032-0.033, T 2 0.046-0.049 against 0.0050 and 0.0099.
+//     S alone and P V alone each take ~1.37 ms at 1088x1920: the two share
+//     the tensor cores, and S's m64n32 products run well below their peak
+//     rate.
 // Times on the card beside these bounds: PERF.md (chip_smoke.py phase 3).
 
 #include <cooperative_groups.h>
@@ -119,12 +124,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// A split block's partial result, in its shared memory from the aligned
-// start of Q (Q and the ring are free by then): O [BQ rows x CVT] fp32,
-// rows STRIDE floats apart, then (m, l) per row.  The padding keeps the
-// consumers' stores in their fragment layout free of bank conflicts: PAD 8
-// for wgmma's (8-byte stores, half a warp on four rows), 4 for mma.sync's
-// (16-byte stores, a quarter warp on two rows).
+// A split bf16 block's partial result, in its shared memory from the
+// aligned start of Q (Q and the ring are free by then): O [BQ rows x CVT]
+// fp32, rows STRIDE floats apart, then (m, l) per row.  PAD 8 keeps the
+// consumers' stores in wgmma's fragment layout (8-byte stores, half a warp
+// on four rows) free of bank conflicts.
 template <int CVT, int PAD>
 struct MergeTile {
     static constexpr int STRIDE = CVT + PAD;
@@ -326,9 +330,8 @@ __device__ __forceinline__ void store4(float* p, float4 x) {
 // A cluster launch is one cluster per (query tile, value tile, batch row):
 // cluster dims (1, 1, splits) over grid z = b * splits + split, so a
 // block's rank in its cluster is its split.  A launch where that fails
-// traps rather than merge the wrong blocks.  Checked by the consumers
-// before the merge: where the check sits moves ptxas's register choices
-// for the fp32 main loop, and there it ran fastest (PERF.md, PR 5).
+// traps rather than merge the wrong blocks.  Checked in split_epilogue,
+// before the merge.
 __device__ __forceinline__ void check_cluster(int split, int splits) {
     const cg::cluster_group cluster = cg::this_cluster();
     if (cluster.block_rank() != (unsigned)split || cluster.num_blocks() != (unsigned)splits)
@@ -336,8 +339,8 @@ __device__ __forceinline__ void check_cluster(int split, int splits) {
 }
 
 // The splits' partial results as a cluster merge reads them: block s's
-// shared memory (MergeTile: O rows STRIDE floats apart, then (m, l) per
-// row), its own directly and its peers' through distributed shared
+// shared memory (O rows STRIDE floats apart, and (m, l) per row), its own
+// directly and its peers' through distributed shared
 // memory, which moves a fraction of what local shared memory or L2 does.
 template <int STRIDE>
 struct ClusterPartials {
@@ -372,9 +375,10 @@ struct L2Partials {
 };
 
 // The merge of a tile's `splits` partials, run by the 256 consumer threads
-// of each block once every split's partial is in place.  Block `split`
-// merges the tile's rows [split * 128 / splits, (split + 1) * 128 /
-// splits) below `rows` (the tile's rows inside HW):
+// of each block (threads 0-255, named barrier 3) once every split's
+// partial is in place.  Block `split` merges the tile's rows [split ROWS /
+// splits, (split + 1) ROWS / splits) below `rows` (the tile's rows inside
+// HW; ROWS is the kernel's query tile):
 //     out[r, :] = sum_s w_s O_s[r, :] / sum_s w_s l_s,  w_s = 2^(m_s - M),
 //     M = max_s m_s,
 // each sum taken over s = 0 .. splits - 1 in order (combine_plain in
@@ -384,11 +388,11 @@ struct L2Partials {
 // all splits issued before the arithmetic.  A split with no live tile
 // holds m = -inf, l = 0, O = 0, and weighs 0.  `out` points at the tile's
 // first row and value column.
-template <int CVT, typename Partials, typename T>
+template <int CVT, int ROWS, typename Partials, typename T>
 __device__ __forceinline__ void merge_splits(const Partials& in, int split, int splits, int rows,
                                              T* out, int cv, int tid) {
-    __shared__ float w_row[BQ / 2][MAX_SPLITS + 1];   // w_s, then 1 / sum_s w_s l_s
-    const int r_lo = split * BQ / splits, r_hi = min((split + 1) * BQ / splits, rows);
+    __shared__ float w_row[ROWS / 2][MAX_SPLITS + 1];   // w_s, then 1 / sum_s w_s l_s
+    const int r_lo = split * ROWS / splits, r_hi = min((split + 1) * ROWS / splits, rows);
     if (tid < r_hi - r_lo) {
         float2 ml[MAX_SPLITS];
 #pragma unroll
@@ -478,7 +482,7 @@ __device__ __forceinline__ void tile_barrier(unsigned* bar, int splits) {
 
 // %ctaid.<axis>, read anew where it is used: the asm is volatile, so the
 // compiler cannot keep an index computed before the main loop live in a
-// register across it (the fp32 consumers use all 240 of theirs there).
+// register across it (the consumers use all of theirs there).
 template <int AXIS>
 __device__ __forceinline__ int block_index() {
     int v;
@@ -488,48 +492,62 @@ __device__ __forceinline__ int block_index() {
     return v;
 }
 
-// The epilogue of a split block (splits > 1), after its consumers' last
-// tile: `store(o, stride, ml, rows)` puts the block's O (fp32,
-// unnormalised, rows `stride` floats apart) at o and its (m, l) at ml, the
-// rows below `rows`; then the tile's splits merge.  In a cluster launch
-// (blocks == splits) the partial goes to the block's own shared memory (Q
+// The L2 workspace of a split launch without clusters, from `part`: O
+// [splits, B, HW, Cv] fp32, then (m, l) [splits, B, HW]; split s's share
+// starts s split_o floats into O and s split_ml pairs into (m, l).
+struct Workspace {
+    long split_ml, split_o;
+    float* o;
+    float2* ml;
+    __device__ __forceinline__ Workspace(float* part, int hw, int cv, int splits)
+        : split_ml((long)(gridDim.z / splits) * hw), split_o(split_ml * cv), o(part),
+          ml(reinterpret_cast<float2*>(part + splits * split_o)) {}
+};
+
+// The epilogue of a split block (splits > 1), run by the 256 threads that
+// hold O (threads 0-255) once they are past their last tile: `store(o,
+// stride, ml, rows)` puts the block's O (fp32, unnormalised, rows `stride`
+// floats apart) at o and, where those threads hold it, its (m, l) at ml,
+// the rows below `rows`; then the tile's splits merge.  ROWS is the
+// kernel's query tile.  In a cluster launch (blocks == splits) the partial
+// goes to the block's own shared memory, O at o_s and (m, l) at ml_s (Q
 // and the ring are free: every consumer is past its last tile, so every
 // TMA load has landed), and the cluster merges through distributed shared
-// memory between two cluster barriers, which the producer warpgroup meets
-// too.  Otherwise (blocks == 1) it goes to `part` in device memory
-// ([splits, B, HW, Cv] fp32, then (m, l) [splits, B, HW]) and the tile's
-// blocks meet at tile_barrier on `bars` (two counters per tile) before
-// they merge from L2.  Block indices are read anew here (block_index).
-template <int CVT, int STRIDE, typename T, typename Store>
-__device__ __forceinline__ void split_epilogue(uint8_t* tile_s, Store store, int hw, int cv,
-                                               int splits, int blocks, float* part,
+// memory between two cluster barriers, which the block's other warpgroups
+// meet too.  Otherwise (blocks == 1) it goes to the Workspace at `part`,
+// every thread that stores a share of it meets the others at named
+// barrier STORED (STORED_COUNT threads), and the tile's blocks meet at
+// tile_barrier on `bars` (two counters per tile) before they merge from
+// L2.  Block indices are read anew here (block_index).
+template <int CVT, int ROWS, int STRIDE, int STORED, int STORED_COUNT, typename T,
+          typename Store>
+__device__ __forceinline__ void split_epilogue(float* o_s, float2* ml_s, Store store, int hw,
+                                               int cv, int splits, int blocks, float* part,
                                                unsigned* bars, T* out, int tid) {
     const int x = block_index<0>(), y = block_index<1>(), z = block_index<2>();
-    const int b = z / splits, split = z % splits, q0 = x * BQ;
+    const int b = z / splits, split = z % splits, q0 = x * ROWS;
     const long tile = (long)b * hw + q0;   // the tile's first row of B * HW
+    const int rows = min(ROWS, hw - q0);
     T* out_t = out + tile * cv + y * CVT;
     if (blocks > 1) {
         check_cluster(split, splits);
         named_bar_sync(3);   // every consumer past its last tile
-        float* o_s = reinterpret_cast<float*>(tile_s);
-        float2* ml_s = reinterpret_cast<float2*>(tile_s + BQ * STRIDE * 4);
-        store(o_s, STRIDE, ml_s, BQ);
+        store(o_s, STRIDE, ml_s, rows);
         cg::this_cluster().sync();
-        merge_splits<CVT>(ClusterPartials<STRIDE>{o_s, ml_s, split}, split, splits,
-                          min(BQ, hw - q0), out_t, cv, tid);
+        merge_splits<CVT, ROWS>(ClusterPartials<STRIDE>{o_s, ml_s, split}, split, splits, rows,
+                                out_t, cv, tid);
         cg::this_cluster().sync();   // no block's shared memory goes while a peer reads it
         return;
     }
-    const long split_ml = (long)(gridDim.z / splits) * hw, split_o = split_ml * cv;
-    float* part_ml = part + splits * split_o;
-    const L2Partials in{part + tile * cv + y * CVT, reinterpret_cast<float2*>(part_ml) + tile,
-                        split_o, split_ml, cv};
-    store(part + split * split_o + tile * cv + y * CVT, cv,
-          reinterpret_cast<float2*>(part_ml) + split * split_ml + tile, min(BQ, hw - q0));
-    named_bar_sync(3);   // every consumer's partial stores issued
+    const Workspace ws(part, hw, cv, splits);
+    const long at = tile * cv + y * CVT;
+    store(ws.o + split * ws.split_o + at, cv, ws.ml + split * ws.split_ml + tile, rows);
+    // every share of the partial stored
+    asm volatile("bar.sync %0, %1;\n" ::"n"(STORED), "n"(STORED_COUNT) : "memory");
     if (tid == 0) tile_barrier(bars + 2 * ((long)(b * gridDim.y + y) * gridDim.x + x), splits);
     named_bar_sync(3);
-    merge_splits<CVT>(in, split, splits, min(BQ, hw - q0), out_t, cv, tid);
+    merge_splits<CVT, ROWS>(L2Partials{ws.o + at, ws.ml + tile, ws.split_o, ws.split_ml, cv},
+                            split, splits, rows, out_t, cv, tid);
 }
 
 // Grid: (HW / 128 query tiles, Cv / CVT value tiles, B * splits).  Block
@@ -810,8 +828,9 @@ memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
             }
         } else {
             using M = typename L::Merge;
-            split_epilogue<CVT, M::STRIDE>(
-                smem_raw + (q_s - smem_u32(smem_raw)),
+            uint8_t* tile_s = smem_raw + (q_s - smem_u32(smem_raw));
+            split_epilogue<CVT, BQ, M::STRIDE, 3, CONSUMERS>(
+                reinterpret_cast<float*>(tile_s), reinterpret_cast<float2*>(tile_s + M::ML_OFF),
                 [&](float* to, int stride, float2* ml_to, int rows) {
 #pragma unroll
                     for (int i = 0; i < 2; ++i) {
@@ -830,32 +849,48 @@ memory_read_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
-// fp32: 3xTF32 on the tensor cores (mma.sync), TMA ring
+// fp32: 3xTF32 on wgmma, TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int F_BK = 32;                       // memory positions per K/V tile
-constexpr int F_STAGES = 3;                    // K/V ring depth
-constexpr int F_WARPS = CONSUMERS / 32;        // consumer warps, 16 query rows each
-// setmaxnreg moves registers within the block's own allocation (384 x 168
-// = 64512): 128 x 24 + 256 x 240 = 64512.  The producer thread needs fewer
-// than memory_read_tc's 40, and 240 leaves ptxas room for the consumers.
-constexpr int F_CONSUMER_REGS = 240;
+constexpr int F_BQ = 64;                  // query rows per block
+constexpr int F_BK = 32;                  // memory positions per K/V tile
+constexpr int F_STAGES = 3;               // K/V ring depth
+constexpr int F_PV = 256;                 // warpgroups 0-1: P V, half the value columns each
+constexpr int F_S_WG = 2;                 // warpgroup 2: S and the softmax; 3: the producer
+constexpr int F_THREADS = F_PV + 256;
+// setmaxnreg: 128 x (144 + 144 + 200 + 24) = 65536, the SM's registers.
+// The S warpgroup holds Q's A fragments, CK registers (hi and lo).
+constexpr int F_PV_REGS = 144;
+constexpr int F_S_REGS = 200;
 constexpr int F_PRODUCER_REGS = 24;
+// named barrier beside merge_splits's 3 (the P V warpgroups): those and the S warpgroup
+constexpr int BAR_PV_S = 4;
 
 // Every tile is a stack of TMA boxes 32 fp32 (128 bytes) wide, rows 128
 // bytes apart; the 128-byte swizzle puts 16-byte chunk c of row r at chunk
-// c ^ (r % 8).  Q: CK / 32 boxes of 128 rows; a stage: CK / 32 key boxes,
-// then CVT / 32 value boxes, of F_BK rows.
+// c ^ (r % 8), which is also wgmma's 128-byte swizzle.  From the aligned
+// start of dynamic shared memory: Q (CK / 32 boxes of 64 rows), whose
+// space then holds two K_lo slots (the low parts of a K tile, in the K
+// tile's layout); the ring, each stage CK / 32 key boxes then CVT /
+// 32 value boxes of F_BK rows; two P slots, each P_hi then P_lo, 64 query
+// rows of 32 positions (one box).
 template <int CK, int CVT>
 struct F32Layout {
-    static constexpr int Q_BOX = BQ * 128;
+    static constexpr int Q_BOX = F_BQ * 128;
     static constexpr int Q_BYTES = CK / 32 * Q_BOX;
     static constexpr int KV_BOX = F_BK * 128;
     static constexpr int K_BYTES = CK / 32 * KV_BOX;
     static constexpr int STAGE_BYTES = K_BYTES + CVT / 32 * KV_BOX;
-    using Merge = MergeTile<CVT, 4>;
-    // + alignment slack; at Ck = 32 and CVT = 256 the merge tile is the larger
-    static constexpr int SMEM = cmax(Q_BYTES + F_STAGES * STAGE_BYTES, Merge::BYTES) + 1024;
+    static constexpr int STAGE0 = Q_BYTES;
+    static constexpr int P_BYTES = F_BQ * 128;
+    static constexpr int P0 = STAGE0 + F_STAGES * STAGE_BYTES;
+    // a split block's O partial, [64 rows x CVT] fp32 from the aligned
+    // start (where Q and the ring were); PAD 4 keeps the P V warpgroups'
+    // 8-byte stores, a half warp on four rows, free of bank conflicts
+    static constexpr int STRIDE = CVT + 4;
+    // + alignment slack
+    static constexpr int SMEM = cmax(P0 + 4 * P_BYTES, F_BQ * STRIDE * 4) + 1024;
+    static_assert(2 * K_BYTES <= Q_BYTES, "two K_lo slots live where Q was");
 };
 
 // byte offset of 16-byte chunk `chunk` of row `row` in a swizzled box
@@ -863,68 +898,141 @@ __device__ __forceinline__ uint32_t swz128(int row, int chunk) {
     return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-__device__ __forceinline__ void lds128(uint32_t addr, float* x) {
-    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3]) : "r"(addr));
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+    uint32_t x;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(x) : "r"(addr));
+    return x;
+}
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+    uint2 x;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(x.x), "=r"(x.y) : "r"(addr));
+    return x;
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+    uint4 x;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w) : "r"(addr));
+    return x;
+}
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t x) {
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 x) {
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                 ::"r"(addr), "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w) : "memory");
+}
+// Shared-memory writes of this thread, made visible to the async proxy
+// (wgmma reads its shared-memory operands through it).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// x = hi + lo to ~2^-22 |x|: hi = tf32(x), lo = tf32(x - hi), each rounded
-// to nearest, ties away from zero: cvt.rna.tf32.f32's result for finite x
-// (the read's inputs are), without its inf/NaN guard, which costs ptxas
-// two more instructions per conversion.  Adding half a TF32 ulp (0x1000)
-// and dropping the 13 low bits is the rounding; the tensor cores read only
-// the 19 high bits of a tf32 operand, so lo needs no mask.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+// The 3xTF32 split.  wgmma reads a tf32 operand's 19 high bits and drops
+// the 13 low ones (round toward zero), so an fp32 x as it stands is hi =
+// trunc(x), and lo = x - trunc(x) is exact in fp32 and read as trunc(lo):
+// x = hi + lo to 2^-20 |x|.  Both products are a_hi b_lo + a_lo b_hi +
+// a_hi b_hi, summed in fp32 (memory_read_tf32_plain in memory_attn.py).
+__device__ __forceinline__ uint32_t tf32_lo(uint32_t x) {
+    return __float_as_uint(__uint_as_float(x) - __uint_as_float(x & 0xffffe000u));
 }
 
-// d[16 x 8] += a[16 x 8] b[8 x 8], tf32 operands, fp32 accumulator
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#define F8(d, i)                                                                          \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
+        "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32: A from registers (the
+// m16n8k8 fragment of each warp's 16 rows), B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_m64n32(float* d, const uint32_t* a, uint64_t desc_b,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : F8(d, 0), F8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// 3xTF32: the small terms first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi, const uint32_t* a_lo,
-                                           const uint32_t* b_hi, const uint32_t* b_lo) {
-    mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
-    mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
-    mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64], as above
+__device__ __forceinline__ void wgmma_tf32_m64n64(float* d, const uint32_t* a, uint64_t desc_b,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// Grid, split, merge and warpgroups as memory_read_tc, in fp32.  Warp w
-// of the two consumer warpgroups owns query rows q0 + 16 w .. + 15 and
-// reads every tile of its split.  Lane (g, tq) = (lane / 4, lane % 4)
-// holds rows g and g + 8 of its warp's 16, in the m16n8k8 fragment
-// layouts.  The tensor cores add into an fp32 accumulator with truncation
-// (a bias toward zero of up to an ulp a step): summed over thousands of
-// steps into O, that costs 1e-4 of the output at 1088x1920.  So each tile's
-// P V goes to a fresh accumulator, 12 steps deep, added to O by the FPU.
+#undef F8
+
+// Grid: (HW / 64 query tiles, Cv / CVT value tiles, B * splits); split
+// and merge as memory_read_tc's (splits, blocks, part, bars), with 64-row
+// tiles.  Four warpgroups:
+//   * 3, the producer: one thread brings Q once and the live K/V tiles of
+//     the block's split through the F_STAGES-deep ring by TMA; its warps
+//     1-3 write each K tile's K_lo (the K tile itself is K_hi) into one of
+//     two slots where Q was, each K value split once.
+//   * 2, S: holds the 64 query rows of Q as 3xTF32 A fragments in its
+//     registers (hi and lo: CK of them).  Per tile it runs S = Q K^T as CK
+//     / 8 k-steps of three wgmma m64n32k8 (small terms first), masks, keeps
+//     the online softmax (m, l) per row, and writes p as P_hi (p as it
+//     stands) and P_lo into a P slot with each row's rescale alpha =
+//     2^(m_old - m_new), each p split once.
+//   * 0 and 1, P V: warpgroup h owns value columns [h CVT / 2, (h + 1) CVT
+//     / 2) as O^T = V^T P^T: per 64 value columns (an m-tile), A = V^T from
+//     registers, loaded from the stage's V as it stands and split there,
+//     each value by one thread once, and B = P^T, the P slot, K-major (its
+//     rows are query rows, positions contiguous).  Each tile's product goes
+//     to a fresh accumulator F, F_BK / 8 k-steps of three wgmma m64n64k8
+//     deep, which the FPU adds to O as O = alpha O + F: the tensor cores
+//     truncate as they accumulate, and summed over a whole bank into O
+//     that bias reaches 1e-4.
+// Positions are renumbered inside each k-step, alike in P and V: k-index
+// tq of k-step kk is position 8 kk + 2 tq, k-index tq + 4 position 8 kk +
+// 2 tq + 1, so that S's accumulator columns (8 n + 2 tq, + 1) store as they
+// stand and a thread's V fragment of a k-step is two 8-byte loads (rows 2
+// tq and 2 tq + 1); value columns are renumbered inside each warp's 16
+// m-rows (m-row g is column 2 g, g + 8 is 2 g + 1), so that each of those
+// loads holds both of a thread's columns.  Every shared-memory access of
+// the main loop is free of bank conflicts.
 template <int CK, int CVT>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(F_THREADS, 1)
 memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ slot_mask,
                   float* __restrict__ out, int hw, int t, int cv, int splits, int blocks,
                   float* __restrict__ part, unsigned* __restrict__ bars, float scale_log2) {
     using L = F32Layout<CK, CVT>;
+    constexpr int S_WARPS = 4, PV_WARPS = F_PV / 32;
     extern __shared__ uint8_t smem_raw[];
     __shared__ uint64_t full_bar[F_STAGES];
     __shared__ uint64_t empty_bar[F_STAGES];
+    __shared__ uint64_t p_full[2];
+    __shared__ uint64_t p_empty[2];
+    __shared__ uint64_t klo_full[2];
+    __shared__ uint64_t klo_empty[2];
     __shared__ uint64_t q_bar;
     __shared__ uint8_t mask_s[MAX_T + 1];
     __shared__ int any_valid_s;
     __shared__ TileRanges ranges;
+    __shared__ __align__(8) float alpha_s[2][F_BQ];   // per P slot: each row's rescale of O
+    __shared__ float2 ml_s[F_BQ];                     // each row's (m, l) after the last tile
 
     // the swizzle repeats every 1024 bytes: align the tiles to it
     const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
-    const uint32_t stage0 = q_s + L::Q_BYTES;
+    const uint32_t stage0 = q_s + L::STAGE0;
+    const uint32_t p_s = q_s + L::P0;
 
     const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = blockIdx.x * F_BQ;
     const int cv0 = blockIdx.y * CVT;
     const int b = blockIdx.z / splits;
     const int split = blockIdx.z % splits;
@@ -934,13 +1042,19 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
         any_valid_s = 0;
         for (int i = 0; i < F_STAGES; ++i) {
             mbar_init(smem_u32(&full_bar[i]), 1);
-            mbar_init(smem_u32(&empty_bar[i]), F_WARPS);
+            mbar_init(smem_u32(&empty_bar[i]), S_WARPS + PV_WARPS);
+        }
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(smem_u32(&p_full[i]), 128);
+            mbar_init(smem_u32(&p_empty[i]), PV_WARPS);
+            mbar_init(smem_u32(&klo_full[i]), 96);
+            mbar_init(smem_u32(&klo_empty[i]), 128);
         }
         mbar_init(smem_u32(&q_bar), 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    for (int i = tid; i < t; i += THREADS) {
+    for (int i = tid; i < t; i += F_THREADS) {
         const uint8_t m = slot_mask[(long)b * t + i];
         mask_s[i] = m;
         if (m) any_valid_s = 1;
@@ -956,18 +1070,48 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
         n_mine = (int)((long)(split + 1) * live / splits) - lo;
     };
     int lo, n_mine;
+    const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+    const int lane = tid % 32, g = lane / 4, tq = lane % 4;
 
-    if (__shfl_sync(0xffffffffu, tid / 128, 0) == CONSUMERS / 128) {
+    if (wg == 3) {
         // ---- producer warpgroup: gives registers away; one thread issues every TMA load ----
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PRODUCER_REGS));
         my_tiles(lo, n_mine);
-        if (tid == CONSUMERS && n_mine > 0) {
+        const int tc = tid - 3 * 128 - 32;   // warps 1-3: the converters
+        if (tc >= 0 && n_mine > 0) {
+            // K_lo of tile j into slot j % 2, where Q was: once the S
+            // warpgroup has Q (the slots' first phase) or S of tile j - 2
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int j = 0; j < n_mine; ++j) {
+                const int slot = j & 1;
+                mbar_wait(smem_u32(&klo_empty[slot]), (j >> 1) & 1);
+                mbar_wait(smem_u32(&full_bar[stage]), phase);
+                const uint32_t ks = stage0 + stage * L::STAGE_BYTES;
+                const uint32_t klo = q_s + slot * L::K_BYTES;
+                // one 16-byte chunk at a time: the warpgroup kept 24 registers
+#pragma unroll 1
+                for (int c = tc; c < L::K_BYTES / 16; c += 96) {
+                    uint4 x = lds128(ks + 16 * c);
+                    x.x = tf32_lo(x.x);
+                    x.y = tf32_lo(x.y);
+                    x.z = tf32_lo(x.z);
+                    x.w = tf32_lo(x.w);
+                    sts128(klo + 16 * c, x);
+                }
+                fence_proxy_async();
+                mbar_arrive(smem_u32(&klo_full[slot]));
+                if (++stage == F_STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+        if (tid == 3 * 128 && n_mine > 0) {
             const uint32_t qb = smem_u32(&q_bar);
             mbar_expect_tx(qb, L::Q_BYTES);
             for (int cb = 0; cb < CK / 32; ++cb)
-                for (int h = 0; h < 2; ++h)
-                    tma_load_3d(q_s + cb * L::Q_BOX + h * 64 * 128, &q_map, qb, cb * 32,
-                                q0 + 64 * h, b);
+                tma_load_3d(q_s + cb * L::Q_BOX, &q_map, qb, cb * 32, q0, b);
             TileCursor cur(ranges, lo);
             int stage = 0;
             uint32_t phase = 0;
@@ -994,162 +1138,238 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
         return;
     }
 
-    // ---- consumers ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CONSUMER_REGS));
-    my_tiles(lo, n_mine);
-    const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid % 32;
-    const int g = lane / 4, tq = lane % 4;
-    const int r0 = warp * 16 + g;   // this thread's rows of the block's 128: r0, r0 + 8
-
-    // o[16 c + 4 j + 2 i + e]: row r0 + 8 i, value column 32 c + 8 tq + 4 e + j
-    // (n-block j of the 32 columns of box c, renumbered: its column g is 4 g + j)
-    float o[CVT / 2];
+    if (wg == F_S_WG) {
+        // ---- S warpgroup: rows r0, r0 + 8 of the block's 64 ----
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_S_REGS));
+        my_tiles(lo, n_mine);
+        const int ts = tid - F_S_WG * 128;
+        const int r0 = __shfl_sync(0xffffffffu, ts / 32, 0) * 16 + g;
+        float m_run[2] = {-INFINITY, -INFINITY};   // log2 units
+        float l_run[2] = {0.f, 0.f};               // this thread's share of the row sums
+        if (n_mine > 0) {
+            // Q as A fragments: k-step kk holds key columns 8 kk + tq (rows
+            // r0, r0 + 8), then 8 kk + tq + 4
+            mbar_wait(smem_u32(&q_bar), 0);
+            uint32_t qh[CK / 8][4], ql[CK / 8][4];
 #pragma unroll
-    for (int i = 0; i < CVT / 2; ++i) o[i] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};   // log2 units
-    float l_run[2] = {0.f, 0.f};               // this thread's share of the row sums
-
-    if (n_mine > 0) {
-        mbar_wait(smem_u32(&q_bar), 0);
-        TileCursor cur(ranges, lo);
-        int stage = 0;
-        uint32_t phase = 0;
-        for (int j = 0; j < n_mine; ++j, cur.next()) {
-            mbar_wait(smem_u32(&full_bar[stage]), phase);
-            const uint32_t ks = stage0 + stage * L::STAGE_BYTES;
-            const uint32_t vs = ks + L::K_BYTES;
-
-            // S = Q K^T.  s[4 n + 2 i + e]: row r0 + 8 i, position 8 n + 2 tq + e.
-            // k-step kk of box cb takes k = tq, tq + 4 as key columns
-            // 8 tq + 2 kk, + 1 (chunks 2 tq and 2 tq + 1 of a row hold all four steps).
-            float s[16];
+            for (int kk = 0; kk < CK / 8; ++kk)
 #pragma unroll
-            for (int i = 0; i < 16; ++i) s[i] = 0.f;
-#pragma unroll
-            for (int cb = 0; cb < CK / 32; ++cb) {
-                float qv[2][8];
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-#pragma unroll
-                    for (int e = 0; e < 2; ++e)
-                        lds128(q_s + cb * L::Q_BOX + swz128(r0 + 8 * i, 2 * tq + e), qv[i] + 4 * e);
-                uint32_t a_hi[4][4], a_lo[4][4];
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                    split_tf32(qv[0][2 * kk], a_hi[kk][0], a_lo[kk][0]);       // row g, k = tq
-                    split_tf32(qv[1][2 * kk], a_hi[kk][1], a_lo[kk][1]);       // row g + 8
-                    split_tf32(qv[0][2 * kk + 1], a_hi[kk][2], a_lo[kk][2]);   // row g, k = tq + 4
-                    split_tf32(qv[1][2 * kk + 1], a_hi[kk][3], a_lo[kk][3]);   // row g + 8
+                for (int i = 0; i < 4; ++i) {
+                    const int row = r0 + 8 * (i % 2), col = 8 * kk + tq + 4 * (i / 2);
+                    qh[kk][i] = lds32(q_s + col / 32 * L::Q_BOX + swz128(row, col % 32 / 4) +
+                                      col % 4 * 4);
+                    ql[kk][i] = tf32_lo(qh[kk][i]);
                 }
-                // key rows (positions) 8 n + g, two n-blocks at a time: two
-                // independent accumulators for the tensor cores to overlap
-#pragma unroll
-                for (int n2 = 0; n2 < 4; n2 += 2) {
-                    float kv[2][8];
-#pragma unroll
-                    for (int h = 0; h < 2; ++h)
-#pragma unroll
-                        for (int e = 0; e < 2; ++e)
-                            lds128(ks + cb * L::KV_BOX + swz128(8 * (n2 + h) + g, 2 * tq + e),
-                                   kv[h] + 4 * e);
-#pragma unroll
-                    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-                        for (int h = 0; h < 2; ++h) {
-                            uint32_t b_hi[2], b_lo[2];
-                            split_tf32(kv[h][2 * kk], b_hi[0], b_lo[0]);
-                            split_tf32(kv[h][2 * kk + 1], b_hi[1], b_lo[1]);
-                            mma_3xtf32(s + 4 * (n2 + h), a_hi[kk], a_lo[kk], b_hi, b_lo);
-                        }
-                }
-            }
+            // Q is in registers: the converters may write K_lo where it was
+            mbar_arrive(smem_u32(&klo_empty[0]));
+            mbar_arrive(smem_u32(&klo_empty[1]));
+            TileCursor cur(ranges, lo);
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int j = 0; j < n_mine; ++j, cur.next()) {
+                const int slot = j & 1;
+                mbar_wait(smem_u32(&full_bar[stage]), phase);
+                mbar_wait(smem_u32(&klo_full[slot]), (j >> 1) & 1);
+                const uint32_t ks = stage0 + stage * L::STAGE_BYTES;
+                const uint32_t klo = q_s + slot * L::K_BYTES;
 
-            // mask, update m and l, p = 2^(S - m) into s
-            const int p0 = cur.tile * F_BK;
-            const int slot_a = p0 / hw;
-            const int bnd = (slot_a + 1) * hw - p0;   // first column of the next slot
-            const bool two_slots = (min(p0 + F_BK, kv_len) - 1) / hw <= slot_a + 1;
-            float mx[2] = {m_run[0], m_run[1]};
+                // S = Q K^T.  s[4 n + 2 i + e]: row r0 + 8 i, position 8 n + 2 tq + e
+                float s[16];
 #pragma unroll
-            for (int n = 0; n < 4; ++n)
+                for (int i = 0; i < 16; ++i) s[i] = 0.f;
+                wgmma_fence();
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = 8 * n + 2 * tq + e;
-                    const bool in_range = p0 + col < kv_len;
-                    const int slot =
-                        col < bnd ? slot_a : (two_slots ? slot_a + 1 : (p0 + col) / hw);
-                    const bool valid = in_range && mask_s[slot] != 0;
-#pragma unroll
-                    for (int i = 0; i < 2; ++i) {
-                        float& x = s[4 * n + 2 * i + e];
-                        x = !in_range ? -INFINITY : (valid ? x * scale_log2 : -1e30f);
-                        mx[i] = fmaxf(mx[i], x);
-                    }
+                for (int kk = 0; kk < CK / 8; ++kk) {
+                    const uint32_t off = kk / 4 * L::KV_BOX + kk % 4 * 32;
+                    const uint64_t k_hi = desc_k_major<128>(ks + off);
+                    const uint64_t k_lo = desc_k_major<128>(klo + off);
+                    wgmma_tf32_m64n32(s, qh[kk], k_lo, 1);
+                    wgmma_tf32_m64n32(s, ql[kk], k_hi, 1);
+                    wgmma_tf32_m64n32(s, qh[kk], k_hi, 1);
                 }
-            float alpha[2];
+                wgmma_commit();
+                wgmma_wait<0>();
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-                alpha[i] = exp2f(m_run[i] - mx[i]);
-                m_run[i] = mx[i];
-                l_run[i] *= alpha[i];
-            }
+                for (int i = 0; i < 16; ++i) reg_fence(s[i]);
+                mbar_arrive(smem_u32(&klo_empty[slot]));
+                __syncwarp();
+                if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+
+                // mask, update m and l, p = 2^(S - m) into s
+                const int p0 = cur.tile * F_BK;
+                const int slot_a = p0 / hw;
+                const int bnd = (slot_a + 1) * hw - p0;   // first column of the next slot
+                const bool two_slots = (min(p0 + F_BK, kv_len) - 1) / hw <= slot_a + 1;
+                float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-            for (int n = 0; n < 4; ++n)
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
+                for (int n = 0; n < 4; ++n)
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
-                        float& x = s[4 * n + 2 * i + e];
-                        x = exp2f(x - m_run[i]);
-                        l_run[i] += x;
-                    }
-            if (alpha[0] != 1.f || alpha[1] != 1.f) {
+                        const int col = 8 * n + 2 * tq + e;
+                        const bool in_range = p0 + col < kv_len;
+                        const int slot_c =
+                            col < bnd ? slot_a : (two_slots ? slot_a + 1 : (p0 + col) / hw);
+                        const bool valid = in_range && mask_s[slot_c] != 0;
 #pragma unroll
-                for (int i = 0; i < CVT / 8; ++i) {
-                    o[4 * i + 0] *= alpha[0];
-                    o[4 * i + 1] *= alpha[0];
-                    o[4 * i + 2] *= alpha[1];
-                    o[4 * i + 3] *= alpha[1];
+                        for (int i = 0; i < 2; ++i) {
+                            float& x = s[4 * n + 2 * i + e];
+                            x = !in_range ? -INFINITY : (valid ? x * scale_log2 : -1e30f);
+                            mx[i] = fmaxf(mx[i], x);
+                        }
+                    }
+                float alpha[2];
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                    alpha[i] = exp2f(m_run[i] - mx[i]);
+                    m_run[i] = mx[i];
+                    l_run[i] *= alpha[i];
                 }
-            }
+#pragma unroll
+                for (int n = 0; n < 4; ++n)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            float& x = s[4 * n + 2 * i + e];
+                            x = exp2f(x - m_run[i]);
+                            l_run[i] += x;
+                        }
 
-            // O += P V.  The accumulator of S's n-block kc is the A operand
-            // of chunk kc as it stands, with k = tq for position 8 kc + 2 tq
-            // and k = tq + 4 for 8 kc + 2 tq + 1: V rows 2 tq and 2 tq + 1
-            // give b0 and b1; one 16-byte load gives four n-blocks' worth.
-            uint32_t p_hi[4][4], p_lo[4][4];
+                // P_hi and P_lo into the slot: position 8 n + 2 tq + e at
+                // column 8 n + tq + 4 e of the row
+                mbar_wait(smem_u32(&p_empty[slot]), ((j >> 1) & 1) ^ 1);
+                const uint32_t ph = p_s + slot * 2 * L::P_BYTES, pl = ph + L::P_BYTES;
 #pragma unroll
-            for (int kc = 0; kc < 4; ++kc) {
-                split_tf32(s[4 * kc + 0], p_hi[kc][0], p_lo[kc][0]);   // row g, k = tq
-                split_tf32(s[4 * kc + 2], p_hi[kc][1], p_lo[kc][1]);   // row g + 8, k = tq
-                split_tf32(s[4 * kc + 1], p_hi[kc][2], p_lo[kc][2]);   // row g, k = tq + 4
-                split_tf32(s[4 * kc + 3], p_hi[kc][3], p_lo[kc][3]);   // row g + 8, k = tq + 4
+                for (int n = 0; n < 4; ++n)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const uint32_t off = swz128(r0 + 8 * i, 2 * n + e) + tq * 4;
+                            const uint32_t x = __float_as_uint(s[4 * n + 2 * i + e]);
+                            sts32(ph + off, x);
+                            sts32(pl + off, tf32_lo(x));
+                        }
+                if (tq == 0) {
+                    alpha_s[slot][r0] = alpha[0];
+                    alpha_s[slot][r0 + 8] = alpha[1];
+                }
+                fence_proxy_async();
+                mbar_arrive(smem_u32(&p_full[slot]));
+                if (++stage == F_STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
             }
+        }
 #pragma unroll
-            for (int c = 0; c < CVT / 32; ++c) {
-                float pv[16];   // this tile's share of o[16 c ..]
+        for (int i = 0; i < 2; ++i) {
+            l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+            l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+        }
+        const int rows = min(F_BQ, hw - q0);
+        if (splits > 1 && blocks == 1) {   // the L2 merge: (m, l) to the workspace
+            const Workspace ws(part, hw, cv, splits);
+            float2* ml = ws.ml + split * ws.split_ml + (long)b * hw + q0;
 #pragma unroll
-                for (int i = 0; i < 16; ++i) pv[i] = 0.f;
+            for (int i = 0; i < 2; ++i)
+                if (tq == 0 && r0 + 8 * i < rows)
+                    ml[r0 + 8 * i] = make_float2(m_run[i], l_run[i]);
+            bar_sync(BAR_PV_S, F_PV + 128);
+            return;
+        }
+        if (tq == 0) {
+            ml_s[r0] = make_float2(m_run[0], l_run[0]);
+            ml_s[r0 + 8] = make_float2(m_run[1], l_run[1]);
+        }
+        if (blocks > 1) {
+            cg::this_cluster().sync();
+            cg::this_cluster().sync();
+        } else {
+            bar_sync(BAR_PV_S, F_PV + 128);
+        }
+        return;
+    }
+
+    // ---- P V warpgroups: warpgroup wg, warp w, m-tile i: value columns
+    // vc = wg CVT / 2 + 64 i + 16 w + 2 g (m-row g) and vc + 1 (m-row g + 8) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_PV_REGS));
+    my_tiles(lo, n_mine);
+    constexpr int MT = CVT / 128;   // m-tiles of the warpgroup
+    const int vc0 = wg * (CVT / 2) + 16 * __shfl_sync(0xffffffffu, (tid % 128) / 32, 0) + 2 * g;
+
+    // o[i][4 n + 2 h + e]: value column vc0 + 64 i + h, query row 8 n + 2 tq + e
+    float o[MT][32];
 #pragma unroll
-                for (int kc = 0; kc < 4; ++kc) {
-                    float v0[4], v1[4];   // columns 32 c + 4 g .. + 3 of rows 2 tq, 2 tq + 1
-                    lds128(vs + c * L::KV_BOX + swz128(8 * kc + 2 * tq, g), v0);
-                    lds128(vs + c * L::KV_BOX + swz128(8 * kc + 2 * tq + 1, g), v1);
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-                    for (int jn = 0; jn < 4; ++jn) {
-                        uint32_t b_hi[2], b_lo[2];
-                        split_tf32(v0[jn], b_hi[0], b_lo[0]);
-                        split_tf32(v1[jn], b_hi[1], b_lo[1]);
-                        mma_3xtf32(pv + 4 * jn, p_hi[kc], p_lo[kc], b_hi, b_lo);
+        for (int x = 0; x < 32; ++x) o[i][x] = 0.f;
+
+    if (n_mine > 0) {
+        float f[32];   // a tile's P V of one m-tile, fresh each time
+#pragma unroll
+        for (int x = 0; x < 32; ++x) f[x] = 0.f;
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int j = 0; j < n_mine; ++j) {
+            const int slot = j & 1;
+            mbar_wait(smem_u32(&full_bar[stage]), phase);
+            mbar_wait(smem_u32(&p_full[slot]), (j >> 1) & 1);
+            const uint32_t vs = stage0 + stage * L::STAGE_BYTES + L::K_BYTES;
+            const uint32_t ph = p_s + slot * 2 * L::P_BYTES, pl = ph + L::P_BYTES;
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                const int vc = vc0 + 64 * i;
+                const uint32_t vb = vs + vc / 32 * L::KV_BOX + vc % 4 * 4;
+                uint32_t ah[F_BK / 8][4], al[F_BK / 8][4];
+#pragma unroll
+                for (int kk = 0; kk < F_BK / 8; ++kk)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const uint2 x = lds64(vb + swz128(8 * kk + 2 * tq + e, vc % 32 / 4));
+                        ah[kk][2 * e] = x.x;
+                        ah[kk][2 * e + 1] = x.y;
+                        al[kk][2 * e] = tf32_lo(x.x);
+                        al[kk][2 * e + 1] = tf32_lo(x.y);
+                    }
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < F_BK / 8; ++kk) {
+                    const uint64_t p_hi = desc_k_major<128>(ph + kk * 32);
+                    const uint64_t p_lo = desc_k_major<128>(pl + kk * 32);
+                    wgmma_tf32_m64n64(f, ah[kk], p_lo, kk > 0);
+                    wgmma_tf32_m64n64(f, al[kk], p_hi, 1);
+                    wgmma_tf32_m64n64(f, ah[kk], p_hi, 1);
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+#pragma unroll
+                for (int x = 0; x < 32; ++x) reg_fence(f[x]);
+#pragma unroll
+                for (int kk = 0; kk < F_BK / 8; ++kk)
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) {
+                        reg_fence(ah[kk][x]);
+                        reg_fence(al[kk][x]);
+                    }
+#pragma unroll
+                for (int n = 0; n < 8; ++n) {
+                    const float2 a = *reinterpret_cast<const float2*>(&alpha_s[slot][8 * n + 2 * tq]);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        float* x = o[i] + 4 * n + 2 * h;
+                        x[0] = fmaf(x[0], a.x, f[4 * n + 2 * h]);
+                        x[1] = fmaf(x[1], a.y, f[4 * n + 2 * h + 1]);
                     }
                 }
-#pragma unroll
-                for (int i = 0; i < 16; ++i) o[16 * c + i] += pv[i];
             }
             __syncwarp();
-            if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+            if (lane == 0) {
+                mbar_arrive(smem_u32(&p_empty[slot]));
+                mbar_arrive(smem_u32(&empty_bar[stage]));
+            }
             if (++stage == F_STAGES) {
                 stage = 0;
                 phase ^= 1;
@@ -1157,49 +1377,34 @@ memory_read_f32tc(const __grid_constant__ CUtensorMap q_map,
         }
     }
 
+    // O's rows below `rows` to `to`, rows `stride` floats apart, value
+    // column c at to[c - cv0]
+    auto store_o = [&](float* to, int stride, int rows, bool scale_by_l) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-        l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    }
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int q = 8 * n + 2 * tq + e;
+                if (q >= rows) continue;
+                const float inv = scale_by_l ? 1.f / ml_s[q].y : 1.f;
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+                    *reinterpret_cast<float2*>(to + (long)q * stride + vc0 + 64 * i) =
+                        make_float2(o[i][4 * n + e] * inv, o[i][4 * n + 2 + e] * inv);
+            }
+    };
     if (splits == 1) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int row = q0 + r0 + 8 * i;
-            if (row >= hw) continue;
-            const float inv = 1.f / l_run[i];
-            float* ob = out + ((long)b * hw + row) * cv + cv0 + 8 * tq;
-#pragma unroll
-            for (int c = 0; c < CVT / 32; ++c)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float* oc = o + 16 * c + 2 * i + e;
-                    *reinterpret_cast<float4*>(ob + 32 * c + 4 * e) =
-                        make_float4(oc[0] * inv, oc[4] * inv, oc[8] * inv, oc[12] * inv);
-                }
-        }
+        bar_sync(BAR_PV_S, F_PV + 128);   // the S warpgroup's (m, l) in ml_s
+        store_o(out + ((long)block_index<2>() * hw + block_index<0>() * F_BQ) * cv +
+                    block_index<1>() * CVT,
+                cv, min(F_BQ, hw - q0), true);
         return;
     }
-    using M = typename L::Merge;
-    split_epilogue<CVT, M::STRIDE>(
-        smem_raw + (q_s - smem_u32(smem_raw)),
-        [&](float* to, int stride, float2* ml_to, int rows) {
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const int row = r0 + 8 * i;
-                if (row >= rows) continue;
-#pragma unroll
-                for (int c = 0; c < CVT / 32; ++c)
-#pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        const float* oc = o + 16 * c + 2 * i + e;
-                        *reinterpret_cast<float4*>(to + row * stride + 32 * c + 8 * tq + 4 * e) =
-                            make_float4(oc[0], oc[4], oc[8], oc[12]);
-                    }
-                if (tq == 0) ml_to[row] = make_float2(m_run[i], l_run[i]);
-            }
-        },
-        hw, cv, splits, blocks, part, bars, out, tid);
+    // the S warpgroup's (m, l): ml_s in a cluster, the workspace otherwise
+    split_epilogue<CVT, F_BQ, L::STRIDE, BAR_PV_S, F_PV + 128>(
+        reinterpret_cast<float*>(smem_raw + (q_s - smem_u32(smem_raw))), ml_s,
+        [&](float* to, int stride, float2*, int rows) { store_o(to, stride, rows, false); }, hw,
+        cv, splits, blocks, part, bars, out, tid);
 }
 
 // cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
@@ -1252,8 +1457,9 @@ struct Split {
 // `cooperative`: all its blocks resident at once, or the launch refused
 // (cudaErrorCooperativeLaunchTooLarge).
 template <typename Kernel>
-cudaError_t read_config(Kernel kernel, int smem, dim3 grid, int blocks, bool cooperative,
-                        cudaStream_t stream, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+cudaError_t read_config(Kernel kernel, int smem, int threads, dim3 grid, int blocks,
+                        bool cooperative, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                        cudaLaunchAttribute& attr) {
     if (blocks > 1) {
         attr.id = cudaLaunchAttributeClusterDimension;
         attr.val.clusterDim.x = 1;
@@ -1265,7 +1471,7 @@ cudaError_t read_config(Kernel kernel, int smem, dim3 grid, int blocks, bool coo
     }
     cfg = cudaLaunchConfig_t{};
     cfg.gridDim = grid;
-    cfg.blockDim = dim3(THREADS);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = &attr;
@@ -1280,23 +1486,24 @@ cudaError_t cleared(cudaError_t err) {
     return err;
 }
 
-// Launches `kernel` with its arguments up to `out`, then (hw, t, cv, the
-// split, scale_log2).  A split merged through L2 (blocks == 1 < splits)
-// waits inside the launch for its tile's other blocks: it is launched
+// Launches `kernel` (blocks of `threads`, `bq` query rows by `cvt` value
+// columns) with its arguments up to `out`, then (hw, t, cv, the split,
+// scale_log2).  A split merged through L2 (blocks == 1 < splits) waits
+// inside the launch for its tile's other blocks: it is launched
 // cooperatively.
 template <typename Kernel, typename T>
-cudaError_t launch_read(Kernel kernel, int smem, int cvt, const CUtensorMap* maps,
-                        const void* mask, T* out, int batch, int hw, int t, int cv, Split sp,
-                        float scale_log2, cudaStream_t stream) {
+cudaError_t launch_read(Kernel kernel, int smem, int threads, int bq, int cvt,
+                        const CUtensorMap* maps, const void* mask, T* out, int batch, int hw,
+                        int t, int cv, Split sp, float scale_log2, cudaStream_t stream) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    const dim3 grid((hw + BQ - 1) / BQ, cv / cvt, batch * sp.splits);
+    const dim3 grid((hw + bq - 1) / bq, cv / cvt, batch * sp.splits);
     const uint8_t* mask_p = static_cast<const uint8_t*>(mask);
     void* args[] = {const_cast<CUtensorMap*>(&maps[0]), const_cast<CUtensorMap*>(&maps[1]),
                     const_cast<CUtensorMap*>(&maps[2]), &mask_p, &out, &hw, &t, &cv,
                     &sp.splits, &sp.blocks, &sp.part, &sp.bars, &scale_log2};
-    cudaError_t err = read_config(kernel, smem, grid, sp.blocks, sp.blocks < sp.splits, stream,
-                                  cfg, attr);
+    cudaError_t err = read_config(kernel, smem, threads, grid, sp.blocks, sp.blocks < sp.splits,
+                                  stream, cfg, attr);
     if (err == cudaSuccess) err = cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
     return err == cudaSuccess ? cudaGetLastError() : cleared(err);
 }
@@ -1304,15 +1511,16 @@ cudaError_t launch_read(Kernel kernel, int smem, int cvt, const CUtensorMap* map
 // How many clusters of `blocks` blocks of the kernel the card holds at
 // once; for blocks == 1, how many blocks.
 template <typename Kernel>
-cudaError_t max_clusters(Kernel kernel, int smem, int blocks, int* count) {
+cudaError_t max_clusters(Kernel kernel, int smem, int threads, int blocks, int* count) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = read_config(kernel, smem, dim3(1, 1, blocks), blocks, false, 0, cfg, attr);
+    cudaError_t err =
+        read_config(kernel, smem, threads, dim3(1, 1, blocks), blocks, false, 0, cfg, attr);
     if (err == cudaSuccess && blocks > 1)
         err = cudaOccupancyMaxActiveClusters(count, (const void*)kernel, &cfg);
     if (err == cudaSuccess && blocks == 1) {
         int per_sm = 0, sms = 0, device = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
         if (err == cudaSuccess) err = cudaGetDevice(&device);
         if (err == cudaSuccess)
             err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -1332,7 +1540,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* m
         !encode_map(&maps[1], k, CK, (long)t * hw, batch, L::CKB, swz) ||
         !encode_map(&maps[2], v, cv, (long)t * hw, batch, 64, CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorInvalidValue;
-    return launch_read(memory_read_tc<CK, CVT>, L::SMEM, CVT, maps, mask,
+    return launch_read(memory_read_tc<CK, CVT>, L::SMEM, THREADS, BQ, CVT, maps, mask,
                        static_cast<__nv_bfloat16*>(out), batch, hw, t, cv, sp,
                        LOG2E / sqrtf((float)CK), stream);
 }
@@ -1344,11 +1552,11 @@ cudaError_t launch_f32tc(const void* q, const void* k, const void* v, const void
     const CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_128B;
     const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
     CUtensorMap maps[3];
-    if (!encode_map(&maps[0], q, CK, hw, batch, 32, swz, f32, 64) ||
+    if (!encode_map(&maps[0], q, CK, hw, batch, 32, swz, f32, F_BQ) ||
         !encode_map(&maps[1], k, CK, (long)t * hw, batch, 32, swz, f32, F_BK) ||
         !encode_map(&maps[2], v, cv, (long)t * hw, batch, 32, swz, f32, F_BK))
         return cudaErrorInvalidValue;
-    return launch_read(memory_read_f32tc<CK, CVT>, L::SMEM, CVT, maps, mask,
+    return launch_read(memory_read_f32tc<CK, CVT>, L::SMEM, F_THREADS, F_BQ, CVT, maps, mask,
                        static_cast<float*>(out), batch, hw, t, cv, sp, LOG2E / sqrtf((float)CK),
                        stream);
 }
@@ -1384,7 +1592,7 @@ cudaError_t with_widths(int ck, int cv, Fn fn) {
 // tile: blocks == splits launches one cluster a tile (a size the card
 // holds: otvm_memory_read_max_clusters); blocks == 1 with splits > 1 merges
 // through `part`, an fp32 workspace of splits * B * HW * (Cv + 2) floats,
-// and `bars`, 2 * B * ceil(HW / 128) * (Cv / CVT) uint32 counters (CVT =
+// and `bars`, 2 * B * ceil(HW / 64) * (Cv / CVT) uint32 counters (CVT =
 // 256, or 128 where Cv is not a multiple of 256), 0 before the first
 // launch (launches leave them fit for the next), and is launched
 // cooperatively: the whole grid on the card at once, or refused
@@ -1402,7 +1610,8 @@ extern "C" int otvm_memory_read_f32(const void* q, const void* k, const void* v,
     });
 }
 
-// The same in bf16, on the tensor cores, 16-byte aligned.
+// The same in bf16, 16-byte aligned; its query tiles are 128 rows, so
+// `bars` holds 2 * B * ceil(HW / 128) * (Cv / CVT) counters.
 extern "C" int otvm_memory_read_bf16(const void* q, const void* k, const void* v,
                                      const void* mask, void* out, int batch, int hw, int t, int ck,
                                      int cv, int splits, int blocks, void* part, void* bars,
@@ -1424,8 +1633,9 @@ extern "C" int otvm_memory_read_max_clusters(int fp32, int ck, int cv, int block
         return (int)cudaErrorInvalidValue;
     return (int)with_widths(ck, cv, [&](auto ck_, auto cvt) {
         constexpr int CK = decltype(ck_)::value, CVT = decltype(cvt)::value;
-        return fp32 ? max_clusters(memory_read_f32tc<CK, CVT>, F32Layout<CK, CVT>::SMEM, blocks,
-                                   count)
-                    : max_clusters(memory_read_tc<CK, CVT>, Layout<CK, CVT>::SMEM, blocks, count);
+        return fp32 ? max_clusters(memory_read_f32tc<CK, CVT>, F32Layout<CK, CVT>::SMEM,
+                                   F_THREADS, blocks, count)
+                    : max_clusters(memory_read_tc<CK, CVT>, Layout<CK, CVT>::SMEM, THREADS,
+                                   blocks, count);
     });
 }

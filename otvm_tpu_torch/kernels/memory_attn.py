@@ -3,10 +3,11 @@ versions, and the wrappers that pick between them.
 
 The kernels (csrc/memory_attn.cu) replace
 otvm_tpu/kernels/memory_attn.py::memory_read_pallas; the source note gives
-the bound on an H100 and the design.  Both dtypes run on the tensor cores,
-with K/V tiles brought in by TMA: bf16 on wgmma, fp32 on mma.sync in
+the bound on an H100, the design and the times on the card.  Both dtypes
+run on wgmma, with K/V tiles brought in by TMA: bf16 directly, fp32 in
 3xTF32 (each operand split into two TF32 halves, three products per
-product: fp32's accuracy).  Where the grid alone would leave the card
+product: fp32's accuracy), with a warpgroup of its own for S and each K,
+V and p value split once.  Where the grid alone would leave the card
 idle, the live K/V tiles are split across up to 8 blocks per output
 tile, which merge their partial results in the same launch: as one
 thread-block cluster a tile, through each other's shared memory, where
@@ -58,7 +59,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _KEY_DIMS = (32, 128)   # the real model and the scale=4 test model
 _CV_SLICE = 128
 _MAX_SLOTS = 256
-BQ = 128                # query rows per block
+BQ = 128                # query rows per block of the bf16 kernel
+F_BQ = 64               # query rows per block of the fp32 kernel
 BK = 64                 # positions per K/V tile of the bf16 kernel
 F_BK = 32               # positions per K/V tile of the fp32 kernel
 _MAX_SPLITS = 8         # blocks of an output tile; of a cluster, the portable size
@@ -151,6 +153,11 @@ def value_tile(cv: int) -> int:
     return 256 if cv % 256 == 0 else 128
 
 
+def query_tile(dtype: torch.dtype) -> int:
+    """Query rows per block of the kernel for `dtype` (bf16 128, fp32 64)."""
+    return BQ if dtype == torch.bfloat16 else F_BQ
+
+
 def tile_positions(dtype: torch.dtype) -> int:
     """Memory positions per K/V tile of the kernel for `dtype` (bf16 64,
     fp32 32): the split rule's unit."""
@@ -178,7 +185,7 @@ def launch_geometry(b: int, hw: int, t: int, cv: int, dtype: torch.dtype,
     `_cluster`: the splits, or 1) override them, for the card tests and
     the split benchmark, and raise above 8, where the card holds no
     cluster of that size, or where the L2 merge's grid does not fit."""
-    q_tiles = -(-hw // BQ)
+    q_tiles = -(-hw // query_tile(dtype))
     cv_tiles = cv // value_tile(cv)
     tiles = q_tiles * cv_tiles * b
     wave = max_clusters.get(1, 0)
@@ -258,11 +265,10 @@ def memory_read_vjp_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tenso
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
-    zero, as the kernel's cvt.rna.tf32.f32: a bit trick on the fp32 pattern
-    (finite x)."""
+    """fp32 x rounded to TF32 (10 mantissa bits) toward zero: the 13 low
+    bits of the fp32 pattern dropped, as wgmma reads an fp32 operand."""
     bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return (bits & -0x2000).view(torch.float32)
 
 
 def memory_read_tf32_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
@@ -270,10 +276,11 @@ def memory_read_tf32_plain(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tens
                            passes: int = 3) -> torch.Tensor:
     """memory_read_plain in fp32 with both products done as the fp32
     kernel's tensor cores do them: each operand x split into hi =
-    tf32_round(x) and lo = tf32_round(x - hi), a b summed in fp32 as a_hi
-    b_lo + a_lo b_hi + a_hi b_hi (passes=3, 3xTF32), or as a_hi b_hi alone
-    (passes=1, plain TF32).  A product of two TF32 values is exact in fp32,
-    so fp32 matmuls of the halves emulate the tensor cores."""
+    tf32_round(x) (x as it stands, read by wgmma) and lo = tf32_round(x -
+    hi) (x - hi is exact in fp32, and read the same way), a b summed in
+    fp32 as a_hi b_lo + a_lo b_hi + a_hi b_hi (passes=3, 3xTF32), or as a_hi
+    b_hi alone (passes=1, plain TF32).  A product of two TF32 values is
+    exact in fp32, so fp32 matmuls of the halves emulate the tensor cores."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, not {passes}")
 
@@ -468,7 +475,7 @@ def memory_read_cuda(q_k: torch.Tensor, m_k: torch.Tensor, m_v: torch.Tensor,
                      slot_mask: Optional[torch.Tensor] = None,
                      _splits: Optional[int] = None,
                      _cluster: Optional[int] = None) -> torch.Tensor:
-    """The kernel (bf16: wgmma, fp32: 3xTF32 mma.sync), on the inputs'
+    """The kernel (bf16: wgmma, fp32: 3xTF32 on wgmma), on the inputs'
     card: one launch, split and merged in a cluster or through L2 where
     `launch_geometry` says so; `_splits` and `_cluster` override its split
     count and cluster size, for the card tests and the split benchmark.

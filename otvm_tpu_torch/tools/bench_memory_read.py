@@ -5,7 +5,8 @@
 
 For the stream's 512p read (HW=1024, T=6, 5 and 1 valid slots), the
 training shapes (B 4, HW 400, T 1 and 2, no mask) and the 1088x1920 read
-(HW=8160, T=3, 2 valid slots): the device time of one read at splits 1 to
+(HW=8160, T=3 with 2 valid slots, and T=6 with 5, the trimap stream's
+full bank): the device time of one read at splits 1 to
 8, each merged both ways the card allows (a split read is one launch:
 "s x s" one cluster a tile, merged through distributed shared memory; "s
 x 1" no cluster, merged through L2, where the grid fits on the card at
@@ -33,7 +34,7 @@ from .kernel_check import device_ms
 # b, hw, t, valid slots (None: no mask), label
 SHAPES = [(1, 1024, 6, 5, "512p count 5"), (1, 1024, 6, 1, "512p count 1"),
           (4, 400, 1, None, "train T=1"), (4, 400, 2, None, "train T=2"),
-          (1, 8160, 3, 2, "1088x1920 count 2")]
+          (1, 8160, 3, 2, "1088x1920 count 2"), (1, 8160, 6, 5, "1088x1920 count 5 of 6")]
 
 
 def host_us(fn, reps):

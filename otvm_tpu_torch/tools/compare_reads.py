@@ -30,7 +30,8 @@ import tempfile
 CASES = [(1, 1024, 6, 5, (2, 3, 6, 8), "512p count 5"),
          (4, 400, 1, None, (3,), "train T=1"),
          (4, 400, 2, None, (3, 4), "train T=2"),
-         (1, 8160, 3, 2, (), "1088x1920 count 2")]
+         (1, 8160, 3, 2, (), "1088x1920 count 2"),
+         (1, 8160, 6, 5, (), "1088x1920 count 5 of 6")]
 DTYPES = ("bfloat16", "float32")
 
 

@@ -8,15 +8,15 @@ at once.  The case: a helper kernel (csrc/sm_hold.cu) holds HELD SMs on a
 second CUDA stream, one block an SM (200 KB of shared memory each leaves no
 room for a block of the read), for HOLD_S seconds, past the barrier's trap
 (2^32 cycles, ~2 s).  Once all its blocks are resident, the current stream
-gets a forced L2 read at 512p in fp32 (HW 1024, T 6, 5 valid slots, 8
-splits: 128 blocks, more than the SMs left).  The read must finish within
-READ_TOL of the plain read.  A trap ends the process's CUDA context, so the
-case runs in a child process: this checkout's `otvm_tpu_torch`, and with
-`--other` also another checkout's (the parent commit, unpacked with `git
-archive`), for which the helper is built from this checkout's source.  A
-second child captures one such read in a CUDA graph and replays it.  Prints
-one JSON line per child; exits 0 where this checkout's read finished within
-tolerance.  Needs a CUDA card.
+gets a forced L2 read at 512p in fp32 (HW 1024, T 6, 5 valid slots, 4
+splits of 32 output tiles: 128 blocks, more than the SMs left).  The read
+must finish within READ_TOL of the plain read.  A trap ends the process's
+CUDA context, so the case runs in a child process: this checkout's
+`otvm_tpu_torch`, and with `--other` also another checkout's (the parent
+commit, unpacked with `git archive`), for which the helper is built from
+this checkout's source.  A second child captures one such read in a CUDA
+graph and replays it.  Prints one JSON line per child; exits 0 where this
+checkout's read finished within tolerance.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from pathlib import Path
 HELD = 40                       # SMs the helper holds, one block each
 HOLD_SMEM = 200 * 1024          # its shared memory a block
 HOLD_S = 4.0                    # how long it holds them
-READ = dict(hw=1024, t=6, count=5, splits=8)    # 512p, forced through L2
+READ = dict(hw=1024, t=6, count=5, splits=4)    # 512p, forced through L2
 _THIS_ROOT = Path(__file__).resolve().parents[2]
 _HOLD_SRC = _THIS_ROOT / "otvm_tpu_torch" / "kernels" / "csrc" / "sm_hold.cu"
 
@@ -77,7 +77,8 @@ def hold_child(hold_lib: str) -> dict:
     resident = ctypes.c_int(0)
     result = dict(package=os.path.dirname(os.path.dirname(os.path.abspath(ma.__file__))),
                   held=HELD, hold_s=HOLD_S,
-                  read_blocks=-(-READ["hw"] // ma.BQ) * 2 * READ["splits"],
+                  read_blocks=-(-READ["hw"] // ma.query_tile(torch.float32)) * 2 *
+                  READ["splits"],
                   card_blocks=ma.max_active_clusters(torch.float32, 128, 512)[1])
     t_hold = time.perf_counter()
     err = lib.otvm_hold_sms(HELD, HOLD_SMEM, int(HOLD_S * 1e9), int(10e9), side.cuda_stream,

@@ -195,7 +195,7 @@ def _splits_ok(dt, b, hw, t, cv, table, splits):
     """The split rule's conditions: at most 8, at least MIN_TILES_PER_SPLIT
     of the dtype's own K/V tiles a split, the whole grid on the card at
     once."""
-    tiles = -(-hw // ma.BQ) * (cv // ma.value_tile(cv)) * b
+    tiles = -(-hw // ma.query_tile(dt)) * (cv // ma.value_tile(cv)) * b
     bank = -(-t * hw // ma.tile_positions(dt))
     return (splits <= 8 and bank >= splits * ma.MIN_TILES_PER_SPLIT
             and tiles * splits <= table[1])
@@ -228,7 +228,8 @@ def test_launch_geometry_covers_each_output_and_position_once(dtype, b, hw, t, c
             q_tiles, cv_tiles, n_split, blocks = ma.launch_geometry(b, hw, t, cv, dt, table,
                                                                     _splits=splits)
             cvt = ma.value_tile(cv)
-            assert cv_tiles * cvt == cv and q_tiles * ma.BQ >= hw > (q_tiles - 1) * ma.BQ
+            bq = ma.query_tile(dt)
+            assert cv_tiles * cvt == cv and q_tiles * bq >= hw > (q_tiles - 1) * bq
             tiles = q_tiles * cv_tiles * b
             assert blocks in (1, n_split)
             if splits is None:
@@ -263,23 +264,31 @@ def test_launch_geometry_covers_each_output_and_position_once(dtype, b, hw, t, c
 
 
 def test_tf32_round_is_cvt_rna():
-    """Round to nearest at 10 mantissa bits, ties away from zero: the
-    fp32 kernel's split (cvt.rna.tf32.f32 on finite values)."""
+    """TF32 at 10 mantissa bits as the fp32 kernel's operands reach the
+    tensor cores: wgmma reads an fp32 operand's 19 high bits, so the split
+    rounds toward zero, on either sign, where cvt.rna.tf32.f32 would round
+    to nearest; hi + lo then holds x to 2^-20 |x|.  The name predates the
+    truncating split: the test checks round toward zero, not cvt.rna."""
     u = 2.0 ** -10                                    # TF32's ulp at 1
     x = torch.tensor([1 + u / 2, 1 + u / 4, -(1 + u / 2), 1 + 1.5 * u, 1 + 0.75 * u, 3.0,
-                      1 + u / 2 - 2.0 ** -23, 0.0])
-    want = [1 + u, 1.0, -(1 + u), 1 + 2 * u, 1 + u, 3.0, 1.0, 0.0]
+                      1 + u - 2.0 ** -23, 0.0])
+    want = [1.0, 1.0, -1.0, 1 + u, 1.0, 3.0, 1.0, 0.0]
     assert ma.tf32_round(x).tolist() == want
     r = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(np.float32))
-    bits = ma.tf32_round(r).view(torch.int32)
+    hi = ma.tf32_round(r)
+    bits = hi.view(torch.int32)
     assert ((bits & 0x1FFF) == 0).all()
-    assert ((ma.tf32_round(r) - r).abs() <= r.abs() * 2.0 ** -11).all()
+    assert ((hi - r).abs() < r.abs() * 2.0 ** -10).all() and (hi.abs() <= r.abs()).all()
+    lo = ma.tf32_round(r - hi)
+    assert ((hi + lo - r).abs() <= r.abs() * 2.0 ** -20).all()
 
 
 # (b, hw, t, per-row masks): 512p count 5, HW=70 with per-row masks, count 0
 TF32_CASES = [(1, 1024, 6, [[1, 1, 1, 1, 1, 0]]),
               (2, 70, 3, [[1, 0, 1], [0, 1, 1]]),
-              (1, 1024, 6, [[0, 0, 0, 0, 0, 0]])]
+              (1, 1024, 6, [[0, 0, 0, 0, 0, 0]]),
+              (4, 400, 1, [[1]] * 4),                   # the training shapes, T=1
+              (4, 400, 2, [[1, 1], [1, 0], [0, 1], [1, 1]])]
 
 
 @pytest.mark.parametrize("b,hw,t,rows", TF32_CASES)
@@ -305,13 +314,13 @@ def _cuda_ready():
 
 @pytest.mark.parametrize("dtype,b,hw,t,table,want", [
     ("bfloat16", 1, 1024, 6, GPC_TABLE, "8x8"),   # 512p: 16 clusters of 8 at once
-    ("float32", 1, 1024, 6, GPC_TABLE, "8x8"),
+    ("float32", 1, 1024, 6, GPC_TABLE, "4x4"),    # fp32's 64-row tiles: 32 tiles, 4 splits
     ("bfloat16", 1, 1024, 6, H100_TABLE, "8x1"),  # the H100 holds 15: the L2 merge
-    ("float32", 1, 1024, 6, H100_TABLE, "8x1"),
-    ("float32", 4, 400, 1, GPC_TABLE, "4x4"),     # training T=1: 13 fp32 tiles; 32 clusters
-    ("float32", 4, 400, 2, GPC_TABLE, "4x4"),     # of 4 fit (T=2: 25 tiles)
-    ("float32", 4, 400, 1, H100_TABLE, "4x1"),    # but not on the H100 (30)
-    ("float32", 4, 400, 2, H100_TABLE, "4x1"),
+    ("float32", 1, 1024, 6, H100_TABLE, "4x1"),   # fill the card; 32 clusters of 4 fit on
+    ("float32", 4, 400, 1, GPC_TABLE, "2x2"),     # the GPC table, 30 on the H100; training:
+    ("float32", 4, 400, 2, GPC_TABLE, "2x2"),     # 56 tiles, 2 splits (13 and 25 fp32 K/V
+    ("float32", 4, 400, 1, H100_TABLE, "2x2"),    # tiles), 66 clusters of 2 on either card
+    ("float32", 4, 400, 2, H100_TABLE, "2x2"),
     ("bfloat16", 4, 400, 1, H100_TABLE, "3x3"),   # 7 bf16 tiles: 3 splits, 32 clusters of 3
     ("bfloat16", 4, 400, 2, H100_TABLE, "3x3"),   # 13 bf16 tiles: 4 cuts only 1 off 5
     ("bfloat16", 1, 8160, 3, GPC_TABLE, "1x1"),   # 1088x1920: 128 blocks fill the card
@@ -361,14 +370,20 @@ def test_forced_splits_that_no_card_cluster_holds_raise():
         ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=8, _cluster=4)
     with pytest.raises(ValueError, match="on the card at once"):
         ma.launch_geometry(1, 8160, 3, 512, torch.float32, table, _splits=2, _cluster=1)
-    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=8)[2:] == (8, 1)
-    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=6)[2:] == (6, 6)
-    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table, _splits=6,
-                              _cluster=1)[2:] == (6, 1)
-    assert ma.launch_geometry(1, 8160, 3, 512, torch.float32, table,
-                              _splits=2)[2:] == (2, 2)              # 128 x 2 > 132: two waves
-    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, {}, _splits=1)[2:] == (1, 1)
-    assert ma.launch_geometry(1, 1024, 6, 512, torch.float32, table)[2:] == (8, 1)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # 512p: bf16's 128-row tiles make 16 output tiles, fp32's 64-row ones 32
+    assert ma.launch_geometry(1, 1024, 6, 512, bf16, table, _splits=8)[2:] == (8, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, bf16, table, _splits=6)[2:] == (6, 6)
+    assert ma.launch_geometry(1, 1024, 6, 512, bf16, table, _splits=6, _cluster=1)[2:] == (6, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, fp32, table, _splits=4)[2:] == (4, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, fp32, table, _splits=3)[2:] == (3, 3)
+    with pytest.raises(ValueError, match="on the card at once"):
+        ma.launch_geometry(1, 1024, 6, 512, fp32, table, _splits=8, _cluster=1)
+    assert ma.launch_geometry(1, 8160, 3, 512, fp32, table,
+                              _splits=2)[2:] == (2, 2)              # 256 x 2 > 132: two waves
+    assert ma.launch_geometry(1, 1024, 6, 512, fp32, {}, _splits=1)[2:] == (1, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, bf16, table)[2:] == (8, 1)
+    assert ma.launch_geometry(1, 1024, 6, 512, fp32, table)[2:] == (4, 1)
 
 
 @pytest.mark.cuda
@@ -381,6 +396,9 @@ def test_forced_splits_that_no_card_cluster_holds_raise():
     (2, 70, 3, [1, 0, 1], 128, 512), (1, 64, 3, [0, 0, 0], 128, 512),
     (2, 70, 3, [[1, 0, 1], [0, 1, 1]], 128, 512),     # per-row masks, ragged, straddling
     (1, 8160, 3, [1, 1, 0], 128, 512),                # 1088x1920, count 2
+    (1, 8160, 6, [1, 1, 1, 1, 1, 0], 128, 512),       # and count 5 of 6
+    (4, 400, 1, [1], 128, 512),                       # the training shapes, T=1
+    (4, 400, 2, [[1, 1], [1, 0], [0, 1], [1, 1]], 128, 512),   # and T=2, per-row masks
     (1, 48, 3, [0, 1, 0], 128, 512),                  # HW < 64, non-prefix
     (2, 64, 4, [[1, 1, 0, 0], [0, 0, 0, 1]], 32, 128),  # the scale-4 model's widths
     (1, 100, 2, [1, 1], 128, 384),                    # Cv not a multiple of 256
@@ -401,7 +419,7 @@ def test_kernel_matches_plain_on_cuda(request, dtype, splits, cluster, b, hw, t,
     m = np.asarray(rows, bool)
     m = torch.from_numpy(np.tile(m[None], (b, 1)) if m.ndim == 1 else m).cuda()
     table = ma.max_active_clusters(dt, ck, cv)
-    tiles = -(-hw // ma.BQ) * (cv // ma.value_tile(cv)) * b
+    tiles = -(-hw // ma.query_tile(dt)) * (cv // ma.value_tile(cv)) * b
     if cluster == 1 and tiles * splits > table[1]:
         with pytest.raises(ValueError, match="on the card at once"):
             ma.memory_read_cuda(q, k, v, m, _splits=splits, _cluster=cluster)
@@ -483,8 +501,8 @@ def test_l2_merge_waits_for_sms_another_stream_holds():
     """The L2 merge's blocks wait for their tile's other splits inside the
     launch, so its grid is launched cooperatively.  A kernel on a second
     stream holds 40 SMs for 4 s (200 KB of shared memory a block: no read
-    block fits beside one); a forced L2 read at 512p fp32 (8 splits, 128
-    blocks, more than the 92 SMs left) must wait until its whole grid is
+    block fits beside one); a forced L2 read at 512p fp32 (4 splits of 32
+    tiles, 128 blocks, more than the 92 SMs left) must wait until its whole grid is
     resident, then give the plain read's result.  Launched without the
     attribute, part of the grid spins at the barrier and traps after
     2^32 cycles, which ends the CUDA context: so the case runs in a child
@@ -510,3 +528,36 @@ def test_l2_merge_read_replays_from_a_cuda_graph():
 
     res = coresidency.run_child(coresidency._THIS_ROOT, "graph")
     assert res.get("captured") and res.get("replay_bit_identical"), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,t,count", [
+    (1, 8160, 3, 2),      # 1088x1920, count 2: no split
+    (1, 1024, 6, 5),      # 512p, count 5: split, merged through L2 on an H100
+    (4, 400, 2, None),    # the training shapes: split, merged in a cluster
+])
+def test_fp32_read_replays_from_a_cuda_graph(b, hw, t, count):
+    """The fp32 read at the split and merge the wrapper picks, captured in
+    a CUDA graph after an eager read on the capture stream (which makes the
+    library, the cluster table and any workspace), replays to the eager
+    read's bits, counted once per replay, and stays within READ_TOL[fp32] of
+    the plain read."""
+    _cuda_ready()
+    q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(b, hw, t, seed=21))
+    mask = None if count is None else (torch.arange(t, device="cuda")[None] < count).expand(
+        b, t).contiguous()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        eager = ma.memory_read_cuda(q, k, v, mask)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with ma.record_launches() as reads, torch.cuda.graph(graph, stream=stream):
+        out = ma.memory_read_cuda(q, k, v, mask)
+    before = ma.launches
+    for _ in range(2):
+        graph.replay()
+        ma.count_launches(reads)
+    torch.cuda.synchronize()
+    assert ma.launches == before + 2 and len(reads) == 1
+    assert torch.equal(out, eager)
+    assert rel_err(out, ma.memory_read_plain(q, k, v, mask)) <= READ_TOL[torch.float32]
